@@ -8,6 +8,9 @@ Phases, each printed on its own line with its seconds:
   2. hold every kernel against its plain PyTorch version on the card, at
      the shapes the encoder gives it at 1920x1080 (exact integer
      equality), and time kernel, plain version and library yardstick;
+     the planes-in SAD entries (sad_table_from_planes, me_from_planes),
+     which no encoder path calls, run here through their entry points
+     with the launch counters reset just before;
   3. encode 1920x1080 8-bit low-delay P through the CLI entry point on
      the card, with the launch counters reset just before it: 13 frames,
      the IDR and twelve P frames, so that the GOP's reference deltas
@@ -47,6 +50,8 @@ PAD = 80
 # frames of the LDP encodes: POC 10 is the first picture whose four
 # reference deltas all land on coded pictures
 N_FRAMES = 13
+# md5 of the 1080p stream for --seed 1, as recorded in PERF.md
+HD_MD5_SEED1 = "3c38a4a0a2472e9637789e622fb401e7"
 
 
 def log(msg):
@@ -119,11 +124,20 @@ def write_clip(path, w, h, n, seed, chroma=420):
 
 
 # ---------------------------------------------------------------- timing
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, queued=False):
+    """Milliseconds per call of fn between two CUDA events, a mean over reps
+    calls after one warm-up call. By default the host issues the calls as
+    it goes, so a call that is shorter on the device than its host launch
+    cost is timed at that cost (the method of the first slice, which the
+    "ms" of the kernels line keeps). With queued=True a device-side sleep
+    (about 0.1 ms a call) runs first, the calls queue behind it and run
+    back to back: device time alone, without the host's launch overhead."""
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(200_000 * reps)
     t0.record()
     for _ in range(reps):
         fn()
@@ -155,33 +169,73 @@ def check_kernels(frames, results):
     lam_fp = int(65536.0 * lam ** 0.5)
     lam_q8 = me_ssd.lam_q8_of(lam_fp)
 
-    # --- SSD table and two-pass argmin, both grids of the main path
-    acc = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes_b": 0.0, "ops_b": 0.0,
-               "err": 0, "lib": 0.0}
-           for k in ("ssd_table", "argmin_two_pass")}
+    # --- window energies, SSD table and two-pass argmin, both grids of the
+    # main path (the ssd_table wrapper launches box_energies, then its own
+    # kernel; its "ms" is the wrapper's, as in the first slice). "ms" is
+    # timed as the first slice timed it, "q_ms" queued behind a sleep.
+    names = ("ssd_table", "argmin_two_pass", "box_energies")
+    acc = {k: {"ms": 0.0, "q_ms": 0.0, "plain_ms": 0.0, "bytes_b": 0.0,
+               "ops_b": 0.0, "err": 0, "lib": None} for k in names}
+    acc["ssd_table"]["lib"] = 0.0
+    alone_ms = 0.0
+    lib = runtime.kernel_lib("me_ssd")
     for size, r in ((32, 64), (16, 16)):
         ny, nx = h // size, w // size
         nyx, aw, n = 2 * r + 1, 2 * r + size, (h // size) * (w // size)
         roi = refp[PAD - r:PAD - r + (ny - 1) * size + aw,
                    PAD - r:PAD - r + (nx - 1) * size + aw]
         kw = dict(size=size, r=r, ny=ny, nx=nx)
+        grid = f"{size}x{size} r={r}"
+        t = {}
+
+        box_k = me_ssd.box_energies(roi, size)
+        rc = roi.to(torch.int32) - 128
+        box_p = me_ssd._box_energies(rc * rc, size)
+        torch.cuda.synchronize()
+        e = max_abs_err(box_k, box_p)
+        if e != 0:
+            raise AssertionError("box_energies disagrees with its plain "
+                                 "version")
+        c = acc["box_energies"]
+        c["err"] = max(c["err"], e)
+        fn = lambda: me_ssd.box_energies(roi, size)  # noqa: E731
+        t["box_energies"] = (cuda_ms(fn, 5), cuda_ms(fn, 20, queued=True))
+        c["plain_ms"] += cuda_ms(lambda: me_ssd._box_energies(
+            (roi.to(torch.int32) - 128) ** 2, size), 5)
+        c["bytes_b"] += roi.numel() + box_k.numel() * 4
+        # a square per input sample, two sliding-sum steps per output
+        c["ops_b"] += 2.0 * roi.numel() + 4.0 * box_k.numel()
+        del rc, box_p
+
         ssd_k = me_ssd._ssd_table(roi, orig, **kw)
         ssd_p = me_ssd._ssd_table_plain(roi, orig, **kw)
         torch.cuda.synchronize()
         e = max_abs_err(ssd_k, ssd_p)
-        log(f"  ssd_table {size}x{size} r={r} ({ny}x{nx} blocks, "
-            f"{nyx}x{nyx} offsets): max_abs_err {e}")
+        log(f"  ssd_table {grid} ({ny}x{nx} blocks, {nyx}x{nyx} offsets): "
+            f"max_abs_err {e}")
         if e != 0:
             raise AssertionError("ssd_table disagrees with its plain version")
         a = acc["ssd_table"]
         a["err"] = max(a["err"], e)
-        a["ms"] += cuda_ms(lambda: me_ssd._ssd_table(roi, orig, **kw), 5)
+        fn = lambda: me_ssd._ssd_table(roi, orig, **kw)  # noqa: E731
+        t["ssd_table"] = (cuda_ms(fn, 5), cuda_ms(fn, 20, queued=True))
+        stream = runtime.stream_of(roi)
+        rcs = []
+
+        def alone():
+            rcs.append(lib.hevc_ssd_table(
+                roi.data_ptr(), roi.stride(0), orig.data_ptr(),
+                orig.stride(0), box_k.data_ptr(), box_k.stride(0),
+                ssd_k.data_ptr(), size, r, ny, nx, stream))
+        t_alone = cuda_ms(alone, 20, queued=True)
+        if any(rcs):
+            raise AssertionError(f"ssd_table kernel alone: launch error "
+                                 f"{max(rcs)}")
+        alone_ms += t_alone
         a["plain_ms"] += cuda_ms(
             lambda: me_ssd._ssd_table_plain(roi, orig, **kw), 2)
-        nbytes = roi.numel() + n * size * size + ssd_k.numel() * 4
-        ops = 2.0 * n * nyx * nyx * size * size
-        a["bytes_b"] += nbytes
-        a["ops_b"] += ops
+        a["bytes_b"] += roi.numel() + n * size * size + ssd_k.numel() * 4
+        a["ops_b"] += 2.0 * n * nyx * nyx * size * size
         # yardstick: the cross term alone as one cuDNN grouped convolution
         # in float32 (exact below 2^24; TF32 off)
         torch.backends.cudnn.allow_tf32 = False
@@ -191,7 +245,7 @@ def check_kernels(frames, results):
             ny, size, nx, size).permute(0, 2, 1, 3).reshape(n, 1, size, size)
         a["lib"] += cuda_ms(lambda: torch.nn.functional.conv2d(
             areas, blks, groups=n), 3)
-        del areas, blks
+        del areas, blks, box_k
 
         bits0 = me_ssd._bits0_dev(r, dev)
         akw = dict(r=r, ny=ny, nx=nx)
@@ -201,37 +255,47 @@ def check_kernels(frames, results):
                                               local_only=False, **akw)
         torch.cuda.synchronize()
         e = max_abs_err(idx_k, idx_p)
-        log(f"  argmin_two_pass {size}x{size} r={r}: max_abs_err {e}")
+        log(f"  argmin_two_pass {grid}: max_abs_err {e}")
         if e != 0:
             raise AssertionError("argmin_two_pass disagrees with its plain "
                                  "version")
         b = acc["argmin_two_pass"]
         b["err"] = max(b["err"], e)
-        b["ms"] += cuda_ms(lambda: me_ssd._argmin_two_pass(
-            ssd_k, bits0, lam_q8, size=size, **akw), 5)
+        fn = lambda: me_ssd._argmin_two_pass(  # noqa: E731
+            ssd_k, bits0, lam_q8, size=size, **akw)
+        t["argmin_two_pass"] = (cuda_ms(fn, 5), cuda_ms(fn, 20, queued=True))
         b["plain_ms"] += cuda_ms(lambda: me_ssd._argmin_two_pass_plain(
             ssd_k, bits0, lam_q8, local_only=False, **akw), 3)
         b["bytes_b"] += ssd_k.numel() * 4 + bits0.numel() * 4 + n * 4
         # pass 1: nine neighbour adds + compare; pass 2: two mv_bits, the
         # rate product, add and two compares
         b["ops_b"] += 16.0 * n * nyx * nyx
-        b["lib"] = None
+        for k, (ms, q_ms) in t.items():
+            acc[k]["ms"] += ms
+            acc[k]["q_ms"] += q_ms
+        log(f"  {grid} ms (queued behind a sleep in brackets): " + ", ".join(
+            f"{k} {ms:.4f} ({q_ms:.4f})" for k, (ms, q_ms) in t.items())
+            + f"; ssd_table kernel alone ({t_alone:.4f})")
         del ssd_k, ssd_p
-    for name, src, replaces, rate in (
-            ("ssd_table", "hevc_tpu_torch/csrc/me_ssd.cu",
-             "hevc_tpu/ops/me_mxu.py:49", INT8_TC_OPS),
-            ("argmin_two_pass", "hevc_tpu_torch/csrc/me_ssd.cu",
-             "hevc_tpu/ops/me_mxu.py:213", SCALAR32_OPS)):
+    for name, replaces, rate in (
+            ("ssd_table", "hevc_tpu/ops/me_mxu.py:49", INT8_TC_OPS),
+            ("argmin_two_pass", "hevc_tpu/ops/me_mxu.py:213", SCALAR32_OPS),
+            ("box_energies", "hevc_tpu/ops/me_mxu.py:124", SCALAR32_OPS)):
         a = acc[name]
         bms, by = bound_ms(a["bytes_b"], a["ops_b"], rate)
         results[name] = {
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "max_abs_err": a["err"], "ms": a["ms"],
+            "name": name, "route": "cuda",
+            "source": "hevc_tpu_torch/csrc/me_ssd.cu", "replaces": replaces,
+            "max_abs_err": a["err"], "ms": a["ms"],
             "plain_ms": a["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": a["lib"]}
-        log(f"  {name} (one reference, both grids): kernel_ms {a['ms']:.3f} "
-            f"plain_ms {a['plain_ms']:.3f} bound_ms {bms:.4f} ({by})"
+        log(f"  {name} (one reference, both grids): kernel_ms {a['ms']:.4f} "
+            f"(queued {a['q_ms']:.4f}) plain_ms {a['plain_ms']:.3f} "
+            f"bound_ms {bms:.4f} ({by})"
             + (f" library_ms {a['lib']:.3f}" if a["lib"] else ""))
+    log(f"  ssd_table kernel alone (both grids, box plane precomputed, "
+        f"queued): {alone_ms:.4f} ms")
+    time_torch_ops(frames, dev)
 
     # --- SAD table + fused cost/argmin at the fallback path's 1080p shape
     size, R = 32, 64
@@ -291,7 +355,105 @@ def check_kernels(frames, results):
         "library_ms": None}
     log(f"  sad_cost_argmin: kernel_ms {ms:.3f} plain_ms {pms:.3f} "
         f"bound_ms {bms:.4f} ({by})")
+    del sad_k, sad_p, blks, areas, o32, r32
+    check_planes(orig, refp, lam_fp, results)
     runtime.reset_launches()
+
+
+def time_torch_ops(frames, dev):
+    """Times of the main path's device work that is torch tensor ops, not a
+    kernel of this package (the reference ran it as XLA programs): the
+    reference padding (_pad_edge_dev) and the IDR's intra prescreen (every
+    _screen_chunk call of a 1080p frame, sizes 4 to 32). Logged only."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import intra_screen, me_ssd
+    h, w = frames[0].shape
+    plane = torch.from_numpy(frames[0]).to(dev)
+    ms = cuda_ms(lambda: me_ssd._pad_edge_dev(plane, PAD), 20)
+    nbytes = plane.numel() + (h + 2 * PAD) * (w + 2 * PAD)
+    bms, by = bound_ms(nbytes, 0, SCALAR32_OPS)
+    log(f"  _pad_edge_dev {w}x{h} pad {PAD}: {ms:.4f} ms, bound "
+        f"{bms:.4f} ms ({by})")
+    p = np.empty((h + 1, w + 1), np.int16)
+    p[1:, 1:] = frames[0]
+    p[0, :] = p[:, 0] = 128
+    p_flat = runtime.upload(p, dev).reshape(-1).to(torch.int32)
+    lam_tab = torch.zeros(35, dtype=torch.int32, device=dev)
+    plan = intra_screen._frame_plan(w, h, (2, 3, 4, 5), dev)
+
+    def screen():
+        for (_, n, _, _, k, _, chunks) in plan:
+            for (_, _, fi, bi) in chunks:
+                intra_screen._screen_chunk(p_flat, fi, bi, lam_tab, size=n,
+                                           bit_depth=8, k=k)
+    ms = cuda_ms(screen, 3)
+    # about 13 operations per sample, mode and size: the angular
+    # prediction (~4) and the difference, 2-D Hadamard, abs and sum (~9)
+    ops = 13.0 * 35 * 4 * h * w
+    bms, by = bound_ms(p_flat.numel() * 4 + h * w * 4, ops, SCALAR32_OPS)
+    log(f"  _screen_chunk, all calls of a {w}x{h} IDR (4x4 to 32x32): "
+        f"{ms:.3f} ms, bound {bms:.4f} ms ({by}, ~{ops / 1e9:.1f} G ops)")
+
+
+def check_planes(orig, refp, lam_fp, results):
+    """The planes-in SAD entries at the 1080p shape (32x32 blocks, r = 64,
+    pad 80: 1980 blocks in a bucket of 2048). No encoder path calls them;
+    this is their path: counters reset, each entry point called once, and
+    the counts read. Then each is held against its plain version."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd, sad
+    dev = orig.device
+    h, w = orig.shape
+    size, r = 32, 64
+    ny, nx = h // size, w // size
+    nyx, n = 2 * r + 1, (h // size) * (w // size)
+    kw = dict(size=size, r=r, ny=ny, nx=nx, pad=PAD)
+    bits = runtime.upload(me_ssd.bits0_table(r), dev)
+    runtime.reset_launches()
+    tab_k = sad.sad_table_from_planes(refp, orig, **kw)
+    idx_k = sad.me_from_planes(refp, orig, bits, lam_fp, **kw)
+    torch.cuda.synchronize()
+    path = dict(runtime.launches)
+    runtime.reset_launches()
+    bucket = tab_k.shape[0]
+    log(f"  planes entry points ({ny}x{nx} = {n} blocks, bucket {bucket}): "
+        f"launches {path}")
+    tab_p = sad.sad_table_from_planes_plain(refp, orig, **kw)
+    idx_p = sad.me_from_planes_plain(refp, orig, bits, lam_fp, **kw)
+    torch.cuda.synchronize()
+    e_tab, e_idx = max_abs_err(tab_k, tab_p), max_abs_err(idx_k, idx_p)
+    log(f"  sad_table_planes: max_abs_err {e_tab}; me_planes: max_abs_err "
+        f"{e_idx}")
+    if e_tab != 0 or e_idx != 0:
+        raise AssertionError("a planes kernel disagrees with its plain "
+                             "version")
+    del tab_p, idx_p
+    plane_bytes = refp.numel() * refp.element_size() + \
+        orig.numel() * orig.element_size()
+    ops = 2.0 * n * nyx * nyx * size * size  # |a - b| and its sum
+    for name, fn, plain, out_bytes, replaces in (
+            ("sad_table_planes",
+             lambda: sad.sad_table_from_planes(refp, orig, **kw),
+             lambda: sad.sad_table_from_planes_plain(refp, orig, **kw),
+             tab_k.numel() * 4, "hevc_tpu/ops/sad_pallas.py:99"),
+            ("me_planes",
+             lambda: sad.me_from_planes(refp, orig, bits, lam_fp, **kw),
+             lambda: sad.me_from_planes_plain(refp, orig, bits, lam_fp, **kw),
+             idx_k.numel() * 4 + bits.numel() * 4,
+             "hevc_tpu/ops/sad_pallas.py:134")):
+        if path[name] <= 0:
+            raise AssertionError(f"{name} was never launched")
+        ms = cuda_ms(fn, 3)
+        pms = cuda_ms(plain, 1)
+        bms, by = bound_ms(plane_bytes + out_bytes, ops, SCALAR32_OPS)
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": "hevc_tpu_torch/csrc/sad.cu", "replaces": replaces,
+            "launches": path[name], "max_abs_err": e_tab if name ==
+            "sad_table_planes" else e_idx, "ms": ms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+        log(f"  {name}: kernel_ms {ms:.3f} plain_ms {pms:.3f} "
+            f"bound_ms {bms:.4f} ({by})")
 
 
 def encode(tmp, name, w, h, n, seed, device, chroma=420, recon=False):
@@ -383,16 +545,20 @@ def main():
             main_launches = dict(runtime.launches)
             ps = psnr_y(frames, os.path.join(tmp, "hd_rec.yuv"), 1920, 1080)
             fps_line = [ln for ln in out.splitlines() if "fps" in ln]
-            log(f"  {len(stream)} bytes, md5 {hashlib.md5(stream).hexdigest()}"
+            md5 = hashlib.md5(stream).hexdigest()
+            log(f"  {len(stream)} bytes, md5 {md5}"
                 f", {secs:.2f} s incl. warm-up; CLI: {fps_line[-1].strip()}")
             log(f"  Y-PSNR per frame: {[round(float(p), 3) for p in ps]}")
             log(f"  host/device sections (s): {timers.summary()}")
             log(f"  launches: {main_launches}")
             if not stream.startswith(b"\x00\x00\x00\x01"):
                 raise AssertionError("stream does not start with a start code")
+            if args.seed == 1 and md5 != HD_MD5_SEED1:
+                raise AssertionError(f"1080p stream md5 {md5}, expected "
+                                     f"{HD_MD5_SEED1} for --seed 1")
             if not all(np.isfinite(ps)) or min(ps) < 25.0:
                 raise AssertionError(f"recon PSNR too low: {ps}")
-            for k in ("ssd_table", "argmin_two_pass"):
+            for k in ("ssd_table", "argmin_two_pass", "box_energies"):
                 if main_launches[k] <= 0:
                     raise AssertionError(f"{k} was never launched")
                 results[k]["launches"] = main_launches[k]
@@ -433,7 +599,8 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    order = ["ssd_table", "argmin_two_pass", "sad_table", "sad_cost_argmin"]
+    order = ["ssd_table", "argmin_two_pass", "box_energies", "sad_table",
+             "sad_cost_argmin", "sad_table_planes", "me_planes"]
     kernels = [results[k] for k in order]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,6 +17,11 @@ __device__ __forceinline__ int mul_wrap(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
 }
 
+// int32 sum with two's-complement wrap, as XLA's int32 add.
+__device__ __forceinline__ int add_wrap(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+
 // (value, index) pair minimum; equal values keep the smaller index, so a
 // reduction returns the first minimum in index order (jnp.argmin's rule).
 __device__ __forceinline__ void argmin_take(int& v, int& i, int ov, int oi) {

@@ -1,158 +1,576 @@
-// Integer motion search of the main path: SSD tables and the two-pass argmin.
+// Integer motion search of the main path: window energies, SSD tables and
+// the two-pass argmin.
 //
 // ssd_table replaces hevc_tpu/ops/me_mxu.py `_ssd_table` (with
 // `_corr_grouped`): for the aligned size x size block grid of a frame,
 //   ssd[n, dy, dx] = win[n, dy, dx] + sum(b^2) - 2 * corr[n, dy, dx],
 // where b is the block centred on 128 (int8), corr is its correlation with
 // its own centred (2r + size)^2 window of the reference, and win is the
-// window energy sum(a^2) read from a box-sum plane the caller computes with
-// a torch integral image (`_box_energies`). All exact in int32.
+// window energy sum(a^2), read from the box-sum plane that box_energies
+// writes (replacing the XLA integral image of `_window_energies`). All
+// exact in int32.
 //
-// What bounds it: operations. At 1080p the 32-grid is 1980 blocks x 129^2
-// offsets x 1024 multiply-adds = 33.7 G MAC per reference (the 16-grid at
-// r = 16 adds 2.2 G), against a 131.8 MB int32 table. One thread block per
-// search block holds the centred window (160 x 160 int8 = 25.6 KB at r = 64)
-// and the block (1 KB) in shared memory. Each thread owns one dx and four
-// vertically adjacent dy: walking down a block column, one int8 shared
-// load feeds four integer multiply-adds (a register sliding window), and the
-// block sample is a broadcast load. Neighbouring threads read neighbouring
-// bytes of a row, so loads do not conflict. The XLA reference ran this as
-// an int8 grouped convolution on the MXU; the int8 tensor-core (wgmma)
-// formulation is the known next step and is left to a later change.
+// The correlation runs on the int8 tensor cores (mma.sync m16n8k32, s8 x s8
+// into s32), as the reference ran it as an int8 convolution on the MXU. Per
+// block row i it is a matrix product:
+//   corr[dy, dx] += sum_x W[dy + i, x] * T_i[x, dx],
+//   T_i[x, dx] = b[i, x - dx] for 0 <= x - dx < size, else 0,
+// W the centred window (int8, shared memory), T_i a banded Toeplitz matrix.
+// For a tile of TN offsets dx0 .. dx0 + TN - 1 only the window columns
+// dx0 .. dx0 + TN + size - 2 meet a non-zero T_i, so the product depth is
+// TN + size - 1 rounded up to 32 (64 for size 32 at TN 32). T_i restricted
+// to the tile depends only on x - dx, so one set of B fragments per row i
+// serves every tile: each fragment register is four consecutive bytes of
+// the zero-extended block row, and the kernel keeps, per row i, the word
+// starting at every byte offset (92 words for size 32) in shared memory.
+// A fragments come from the window with ldmatrix. |corr| <= 1024 * 128^2 <
+// 2^31: exact. Padding of M (offsets dy, to 16) and N (dx, to TN) is
+// computed and masked in the epilogue, which adds win and sum(b^2).
 //
-// argmin_two_pass replaces `_argmin_two_pass` (LOCAL_W = 8). One thread
-// block per grid block:
+// What bounds it: operations. At 1080p the 32-grid at r = 64 is 1980 blocks
+// of 144 x 160 padded offsets x 64-deep products over 32 rows: 93.4 G int8
+// multiply-adds per reference, against a 131.8 MB int32 table. One thread
+// block per search block; its window arrives by cp.async. A warp owns three
+// m16 tiles by one N tile and keeps the B fragments of row i in registers
+// across the three, so each m16n8k32 product costs about 1.7 shared-memory
+// wavefronts (ldmatrix for A, one word load per B register). The window
+// row stride is an odd multiple of 16 bytes, so ldmatrix rows do not
+// conflict. Three thread blocks share an SM (80 registers a thread).
+//
+// argmin_two_pass replaces `_argmin_two_pass` (LOCAL_W = 8):
 //   pass 1: argmin of the 3x3-neighbourhood sum of
 //           cost1 = ssd + ((lam * bits0) >> 8) (zero outside the grid);
 //   pass 2: cost2 = ssd + ((lam * bits2) >> 8), bits2 rated against the
-//           pass-1 MV; the local argmin within +-8 of it and the global
-//           argmin; the global one wins only if c_g + (c_loc >> 3) < c_loc.
-// Every argmin takes the first minimum in row-major order. It reads nine
-// neighbouring tables per block (mostly from L2): bytes-bound.
+//           pass-1 MV; the local argmin within +-8 of it (1 << 30 outside)
+//           and the global argmin; the global one wins only if
+//           c_g + (c_loc >> 3) < c_loc.
+// Every argmin takes the first minimum in row-major order; sums wrap in
+// int32 as XLA's do. What bounds it: bytes. One thread block owns a 2 x 4
+// tile of grid blocks, a warp per block, two thread blocks an SM. In pass
+// 1 each warp takes every 8th run of 32 offsets and loads, per offset, the
+// 4 x 6 neighbourhood of tables (the tile and a one-block halo; loads
+// coalesced across the warp, none outside the grid), forms the 8 3x3 sums
+// separably and keeps a first minimum per block; no barrier until the end
+// of the pass. In pass 2 each warp reads its block's own table once in
+// 16-byte loads, 8 in flight per lane, from the end backwards (the end
+// was read last in pass 1 and may still be in L2), for the global minimum;
+// the local minimum reads only the 17 x 17 window. Each table is read
+// 24/8 + 1 = 4 times, the halo reads mostly from L2, instead of ten times.
+// (A 4 x 4 tile reads less, 36/16 + 1, but at 1080p its 135 thread blocks
+// of 16 warps, one an SM, run the 32x32 grid in two waves.)
+
+// box_energies: the box-sum plane of the centred squares, one thread block
+// per 32 x 128 output tile (sliding column sums, then row sums, in shared
+// memory). Bytes-bound: it reads the plane and writes the int32 plane once.
+#include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kArgminThreads = 512;
-constexpr int kLocalW = 8;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
 
-__global__ void __launch_bounds__(kThreads)
+// ------------------------------------------------------------ ssd_table
+
+constexpr int kSsdMaxWarps = 8;
+constexpr int kMTiles = 3;  // m16 tiles a warp owns (one N tile wide)
+
+// N tile width TN and product depth 32 * KS per block size (TN + size - 1
+// <= 32 * KS; TN a multiple of 16 so ldmatrix rows stay 16-byte aligned).
+template <int SIZE>
+struct SsdTile;
+template <>
+struct SsdTile<8> {
+  static constexpr int TN = 16, KS = 1;
+};
+template <>
+struct SsdTile<16> {
+  static constexpr int TN = 16, KS = 1;
+};
+template <>
+struct SsdTile<32> {
+  static constexpr int TN = 32, KS = 2;
+};
+
+// Shared-memory layout of one ssd_table thread block.
+template <int SIZE>
+struct SsdLayout {
+  static constexpr int TN = SsdTile<SIZE>::TN, KS = SsdTile<SIZE>::KS;
+  static constexpr int BW = 32 * KS + TN - 4;  // B words per block row
+  int nyx, aw, mt_n, nt_n, rows, stride;
+  __host__ __device__ explicit SsdLayout(int r) {
+    nyx = 2 * r + 1;
+    aw = 2 * r + SIZE;
+    mt_n = (nyx + 15) / 16;
+    nt_n = (nyx + TN - 1) / TN;
+    rows = mt_n * 16 + SIZE - 1;
+    const int cols = (nt_n - 1) * TN + 32 * KS;
+    stride = (cols + 15) & ~15;
+    if (((stride >> 4) & 1) == 0) stride += 16;  // odd multiple of 16 B
+  }
+  __host__ __device__ size_t window_bytes() const {
+    return static_cast<size_t>(rows) * stride;
+  }
+  __host__ __device__ size_t bytes() const {
+    return window_bytes() + static_cast<size_t>(SIZE) * BW * 4 + SIZE * SIZE;
+  }
+  __host__ __device__ int items() const {
+    return (mt_n + kMTiles - 1) / kMTiles * nt_n;
+  }
+};
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& a0,
+                                            uint32_t& a1, uint32_t& a2,
+                                            uint32_t& a3) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a0), "=r"(a1), "=r"(a2), "=r"(a3)
+      : "r"(addr));
+}
+
+// c += A(16x32, s8, row) * B(32x8, s8, col), exact in s32
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+template <int SIZE>
+__global__ void __launch_bounds__(kSsdMaxWarps * 32, 3)
 ssd_table_kernel(const uint8_t* __restrict__ roi, long long roi_stride,
                  const uint8_t* __restrict__ orig, long long orig_stride,
                  const int* __restrict__ box, long long box_stride,
-                 int* __restrict__ out, int size, int r, int nx) {
-  extern __shared__ int8_t smem8[];
-  __shared__ int b2_sum;
-  const int aw = 2 * r + size;
-  const int nyx = 2 * r + 1;
-  const int ny4 = (nyx + 3) & ~3;
-  const int ah = ny4 + size - 1;  // rows the last group of four offsets reads
-  int8_t* sa = smem8;             // [ah][aw], centred, rows past aw zero
-  int8_t* sb = smem8 + ah * aw;   // [size][size], centred
+                 int* __restrict__ out, int r, int nx) {
+  using L = SsdLayout<SIZE>;
+  constexpr int TN = L::TN, KS = L::KS, NS = TN / 8, BW = L::BW;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int b2_warp[kSsdMaxWarps];
+  const L lay(r);
+  const int nyx = lay.nyx, aw = lay.aw, S = lay.stride;
+  uint8_t* sw = smem;                                           // [rows][S]
+  uint32_t* sw32 = reinterpret_cast<uint32_t*>(sw);
+  uint32_t* swb = reinterpret_cast<uint32_t*>(smem + lay.window_bytes());
+  uint8_t* sb = reinterpret_cast<uint8_t*>(swb + SIZE * BW);  // [SIZE][SIZE]
   const int n = blockIdx.x;
   const int by = n / nx, bx = n - (n / nx) * nx;
-  const uint8_t* ga = roi + (static_cast<long long>(by) * size) * roi_stride +
-                      static_cast<long long>(bx) * size;
-  for (int k = threadIdx.x; k < ah * aw; k += blockDim.x) {
-    const int y = k / aw, x = k - (k / aw) * aw;
-    sa[k] = y < aw ? static_cast<int8_t>(ga[y * roi_stride + x] - 128) : 0;
+
+  // the window: word-aligned rows stream in with cp.async; other words
+  // (the plane's unaligned case, the row tail, rows and columns past aw)
+  // are assembled byte by byte, zero past aw
+  const uint8_t* ga = roi + (static_cast<long long>(by) * SIZE) * roi_stride +
+                      static_cast<long long>(bx) * SIZE;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(ga) | static_cast<uintptr_t>(roi_stride)) &
+       3) == 0;
+  const int s4 = S >> 2;
+  for (int k = threadIdx.x; k < lay.rows * s4; k += blockDim.x) {
+    const int y = k / s4, x = (k - y * s4) << 2;
+    const uint8_t* row = ga + y * roi_stride;
+    if (aligned && y < aw && x + 4 <= aw) {
+      cp_async4(sw32 + k, row + x);
+    } else {
+      uint32_t w = 0;
+      if (y < aw) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (x + q < aw) w |= static_cast<uint32_t>(row[x + q]) << (8 * q);
+      }
+      sw32[k] = w;
+    }
   }
-  if (threadIdx.x == 0) b2_sum = 0;
-  __syncthreads();
-  const uint8_t* gb = orig + (static_cast<long long>(by) * size) * orig_stride +
-                      static_cast<long long>(bx) * size;
+  const uint8_t* gb = orig + (static_cast<long long>(by) * SIZE) * orig_stride +
+                      static_cast<long long>(bx) * SIZE;
   int b2 = 0;
-  for (int k = threadIdx.x; k < size * size; k += blockDim.x) {
-    const int y = k / size, x = k - (k / size) * size;
+  for (int k = threadIdx.x; k < SIZE * SIZE; k += blockDim.x) {
+    const int y = k / SIZE, x = k - (k / SIZE) * SIZE;
     const int v = static_cast<int>(gb[y * orig_stride + x]) - 128;
-    sb[k] = static_cast<int8_t>(v);
+    sb[k] = static_cast<uint8_t>(v);
     b2 += v * v;
   }
-  atomicAdd(&b2_sum, b2);
+  for (int off = 16; off > 0; off >>= 1)
+    b2 += __shfl_xor_sync(0xffffffffu, b2, off);
+  if ((threadIdx.x & 31) == 0) b2_warp[threadIdx.x >> 5] = b2;
+  cp_async_wait_all();
   __syncthreads();
-  b2 = b2_sum;
+  // centre the samples (v - 128 as int8 is v ^ 0x80) and build the B
+  // words: swb[i][w] holds bytes b[i][o .. o+3], o = w - (TN - 1), of the
+  // block row zero-extended on both sides
+  for (int k = threadIdx.x; k < lay.rows * s4; k += blockDim.x) {
+    const int y = k / s4, x = (k - y * s4) << 2;
+    const int m = aw - x;  // real samples in this word (if y < aw)
+    if (y < aw && m > 0)
+      sw32[k] ^= m >= 4 ? 0x80808080u : 0x80808080u & ((1u << (8 * m)) - 1);
+  }
+  for (int k = threadIdx.x; k < SIZE * BW; k += blockDim.x) {
+    const int i = k / BW, o = k - (k / BW) * BW - (TN - 1);
+    uint32_t w = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (o + q >= 0 && o + q < SIZE)
+        w |= static_cast<uint32_t>(sb[i * SIZE + o + q]) << (8 * q);
+    swb[k] = w;
+  }
+  b2 = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) b2 += b2_warp[w];
+  __syncthreads();
 
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // this lane's ldmatrix row and byte column within a 16 x 32 A tile
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 16;
+  const uint32_t sw_base = static_cast<uint32_t>(__cvta_generic_to_shared(sw));
   int* o = out + static_cast<long long>(n) * nyx * nyx;
-  const int* bw = box + (static_cast<long long>(by) * size) * box_stride +
-                  static_cast<long long>(bx) * size;
-  const int items = nyx * (ny4 >> 2);
-  for (int t = threadIdx.x; t < items; t += blockDim.x) {
-    const int dx = t % nyx;
-    const int dy0 = (t / nyx) << 2;
-    int c0 = 0, c1 = 0, c2 = 0, c3 = 0;
-    for (int j = 0; j < size; ++j) {
-      const int8_t* col = sa + dy0 * aw + dx + j;
-      int a0 = col[0], a1 = col[aw], a2 = col[2 * aw];
-      for (int i = 0; i < size; ++i) {
-        const int a3 = col[(i + 3) * aw];
-        const int b = sb[i * size + j];
-        c0 += a0 * b;
-        c1 += a1 * b;
-        c2 += a2 * b;
-        c3 += a3 * b;
-        a0 = a1;
-        a1 = a2;
-        a2 = a3;
+  const int* bw = box + (static_cast<long long>(by) * SIZE) * box_stride +
+                  static_cast<long long>(bx) * SIZE;
+  const int items = lay.items();
+  for (int item = threadIdx.x >> 5; item < items; item += blockDim.x >> 5) {
+    const int mg = item / lay.nt_n, nt = item - mg * lay.nt_n;
+    const int m0 = mg * kMTiles * 16, dx0 = nt * TN;
+    const int mcount = min(kMTiles, lay.mt_n - mg * kMTiles);
+    int acc[kMTiles][NS][4];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int ns = 0; ns < NS; ++ns)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mt][ns][c] = 0;
+    const uint32_t a_base =
+        sw_base + (m0 + a_row) * S + dx0 + a_col;
+#pragma unroll 4
+    for (int i = 0; i < SIZE; ++i) {
+      // B fragment (ks, ns, h): k = 32 ks + 16 h + 4 t + q, n = 8 ns + g,
+      // T = b[i][k - n]: the word at offset 32 ks + 16 h - 8 ns + 4 t - g
+      const uint32_t* wb = swb + i * BW + (TN - 1) + 4 * t - g;
+      uint32_t bf[KS][NS][2];
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int ns = 0; ns < NS; ++ns)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            bf[ks][ns][h] = wb[32 * ks + 16 * h - 8 * ns];
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt) {
+        if (mt < mcount) {
+#pragma unroll
+          for (int ks = 0; ks < KS; ++ks) {
+            uint32_t a0, a1, a2, a3;
+            ldmatrix_x4(a_base + (mt * 16 + i) * S + 32 * ks, a0, a1, a2, a3);
+#pragma unroll
+            for (int ns = 0; ns < NS; ++ns)
+              mma_s8(acc[mt][ns], a0, a1, a2, a3, bf[ks][ns][0],
+                     bf[ks][ns][1]);
+          }
+        }
       }
     }
-    const int c[4] = {c0, c1, c2, c3};
+    // epilogue: c0, c1 at (row g, cols 2t, 2t+1); c2, c3 at row g + 8
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int dy = dy0 + k;
-      if (dy < nyx)
-        o[dy * nyx + dx] = bw[dy * box_stride + dx] + b2 - 2 * c[k];
+    for (int mt = 0; mt < kMTiles; ++mt) {
+      if (mt < mcount) {
+#pragma unroll
+        for (int ns = 0; ns < NS; ++ns)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int dy = m0 + mt * 16 + g + 8 * (c >> 1);
+            const int dx = dx0 + 8 * ns + 2 * t + (c & 1);
+            if (dy < nyx && dx < nyx)
+              o[dy * nyx + dx] =
+                  bw[dy * box_stride + dx] + b2 - 2 * acc[mt][ns][c];
+          }
+      }
     }
   }
 }
 
-__global__ void __launch_bounds__(kArgminThreads)
+template <int SIZE>
+int launch_ssd_table(const void* roi, long long roi_stride, const void* orig,
+                     long long orig_stride, const void* box,
+                     long long box_stride, void* out, int r, int ny, int nx,
+                     cudaStream_t stream) {
+  const SsdLayout<SIZE> lay(r);
+  const size_t smem = lay.bytes();
+  cudaError_t e = allow_smem(ssd_table_kernel<SIZE>, smem);
+  if (e != cudaSuccess) return e;
+  const int warps = std::min(kSsdMaxWarps, lay.items());
+  if (ny > 0 && nx > 0)
+    ssd_table_kernel<SIZE><<<ny * nx, warps * 32, smem, stream>>>(
+        static_cast<const uint8_t*>(roi), roi_stride,
+        static_cast<const uint8_t*>(orig), orig_stride,
+        static_cast<const int*>(box), box_stride, static_cast<int*>(out), r,
+        nx);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------- box_energies
+
+constexpr int kBoxRows = 32, kBoxCols = 128;  // output tile of one block
+constexpr int kBoxBatch = 16;                 // byte loads in flight
+
+// box[y, x] = sum of (roi - 128)^2 over the size x size square at (y, x),
+// for y < out_h, x < out_w (roi holds out_h + size - 1 rows). A thread
+// block stages its input tile in shared memory, sums each column down a
+// sliding window of `size` rows, then each output along its row.
+__global__ void __launch_bounds__(kBoxCols)
+box_energies_kernel(const uint8_t* __restrict__ roi, long long roi_stride,
+                    int out_h, int out_w, int size, int* __restrict__ box,
+                    long long box_stride) {
+  extern __shared__ int sv[];  // [kBoxRows][cw] column sums, then the tile
+  const int cw = kBoxCols + size - 1;
+  const int y0 = blockIdx.y * kBoxRows, x0 = blockIdx.x * kBoxCols;
+  const int rows = min(kBoxRows, out_h - y0);
+  const int in_w = out_w + size - 1;
+  const int th = rows + size - 1;
+  uint8_t* st = reinterpret_cast<uint8_t*>(sv + kBoxRows * cw);  // [th][cw]
+  for (int k0 = threadIdx.x; k0 < th * cw; k0 += kBoxBatch * blockDim.x) {
+    uint8_t v[kBoxBatch];
+#pragma unroll
+    for (int u = 0; u < kBoxBatch; ++u) {
+      const int k = k0 + u * blockDim.x;
+      const int y = k / cw, c = k - (k / cw) * cw;
+      v[u] = k < th * cw && x0 + c < in_w
+                 ? roi[(y0 + y) * roi_stride + x0 + c]
+                 : 128;
+    }
+#pragma unroll
+    for (int u = 0; u < kBoxBatch; ++u) {
+      const int k = k0 + u * blockDim.x;
+      if (k < th * cw) st[k] = v[u];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < cw; c += blockDim.x) {
+    auto sq = [&](int y) {
+      const int v = static_cast<int>(st[y * cw + c]) - 128;
+      return v * v;
+    };
+    int s = 0;
+    for (int i = 0; i < size; ++i) s += sq(i);
+    for (int yy = 0; yy < rows; ++yy) {
+      sv[yy * cw + c] = s;
+      if (yy + 1 < rows) s += sq(yy + size) - sq(yy);
+    }
+  }
+  __syncthreads();
+  const int x = x0 + threadIdx.x;
+  if (x >= out_w) return;
+  for (int yy = 0; yy < rows; ++yy) {
+    const int* v = sv + yy * cw + threadIdx.x;
+    int s = 0;
+    for (int j = 0; j < size; ++j) s += v[j];
+    box[static_cast<long long>(y0 + yy) * box_stride + x] = s;
+  }
+}
+
+// ------------------------------------------------------ argmin_two_pass
+
+constexpr int kLocalW = 8;
+constexpr int kTileY = 2, kTileX = 4;    // grid blocks of one tile
+constexpr int kHaloY = kTileY + 2, kHaloX = kTileX + 2;
+constexpr int kWarps = kTileY * kTileX;   // one per block of the tile
+constexpr int kArgminThreads = kWarps * 32;
+constexpr int kVec = 8;                   // pass-2 int4 loads in flight a lane
+
+__device__ __forceinline__ void warp_argmin(int& v, int& i) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const int ov = __shfl_xor_sync(0xffffffffu, v, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
+    argmin_take(v, i, ov, oi);
+  }
+}
+
+__global__ void __launch_bounds__(kArgminThreads, 2)
 argmin_two_pass_kernel(const int* __restrict__ ssd,
                        const int* __restrict__ bits0, int lam, int r, int ny,
                        int nx, int local_only, int* __restrict__ idx) {
-  __shared__ int scratch[64];
+  __shared__ int s_v[kWarps][kWarps], s_i[kWarps][kWarps];
   const int nyx = 2 * r + 1;
   const int npos = nyx * nyx;
-  const int n = blockIdx.x;
-  const int by = n / nx, bx = n - (n / nx) * nx;
+  const int ty0 = blockIdx.y * kTileY, tx0 = blockIdx.x * kTileX;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  // pass 1: regional (3x3 block neighbourhood) cost
-  int best = 0x7fffffff, bi = 0x7fffffff;
-  for (int p = threadIdx.x; p < npos; p += blockDim.x) {
-    const int rate = mul_wrap(lam, bits0[p]) >> 8;
-    int s = 0;
-    for (int oy = -1; oy <= 1; ++oy) {
-      const int y = by + oy;
-      if (y < 0 || y >= ny) continue;
-      for (int ox = -1; ox <= 1; ++ox) {
-        const int x = bx + ox;
-        if (x < 0 || x >= nx) continue;
-        s += ssd[(static_cast<long long>(y) * nx + x) * npos + p] + rate;
+  // pass 1. Warp w takes the offsets p = 32 c + lane for c = w, w + kWarps,
+  // ... and, for each, loads that offset of the tables of the tile and a
+  // one-block halo (coalesced across the warp; none outside the grid),
+  // forms the tile's 3x3 sums separably and keeps a first minimum per
+  // block of the tile.
+  unsigned long long inside = 0;  // halo cell hy * kHaloX + hx in the grid
+  for (int h = 0; h < kHaloY * kHaloX; ++h) {
+    const int gy = ty0 - 1 + h / kHaloX, gx = tx0 - 1 + h % kHaloX;
+    if (gy >= 0 && gy < ny && gx >= 0 && gx < nx) inside |= 1ull << h;
+  }
+  // in-grid neighbours of block (y, x): cy[y] * cx[x] rate terms
+  unsigned cy[kTileY], cx[kTileX];
+#pragma unroll
+  for (int k = 0; k < kTileY; ++k)
+    cy[k] = min(ty0 + k + 1, ny - 1) - max(ty0 + k - 1, 0) + 1;
+#pragma unroll
+  for (int k = 0; k < kTileX; ++k)
+    cx[k] = min(tx0 + k + 1, nx - 1) - max(tx0 + k - 1, 0) + 1;
+  const long long row_step = static_cast<long long>(nx) * npos;
+  const long long t00 =
+      (static_cast<long long>(ty0 - 1) * nx + (tx0 - 1)) * npos;
+  int best[kTileY][kTileX], bidx[kTileY][kTileX];
+#pragma unroll
+  for (int y = 0; y < kTileY; ++y)
+#pragma unroll
+    for (int x = 0; x < kTileX; ++x) {
+      best[y][x] = 0x7fffffff;
+      bidx[y][x] = 0x7fffffff;
+    }
+  for (int p = 32 * warp + lane; p - lane < npos; p += 32 * kWarps) {
+    const bool live = p < npos;
+    int v[kHaloY][kHaloX];
+#pragma unroll
+    for (int hy = 0; hy < kHaloY; ++hy)
+#pragma unroll
+      for (int hx = 0; hx < kHaloX; ++hx)
+        v[hy][hx] = live && ((inside >> (hy * kHaloX + hx)) & 1)
+                        ? __ldg(ssd + t00 + hy * row_step + hx * npos + p)
+                        : 0;
+    if (!live) continue;
+    const unsigned rate = static_cast<unsigned>(mul_wrap(lam, bits0[p]) >> 8);
+    unsigned hs[kHaloY][kTileX];  // horizontal 3-sums
+#pragma unroll
+    for (int hy = 0; hy < kHaloY; ++hy)
+#pragma unroll
+      for (int x = 0; x < kTileX; ++x)
+        hs[hy][x] = static_cast<unsigned>(v[hy][x]) +
+                    static_cast<unsigned>(v[hy][x + 1]) +
+                    static_cast<unsigned>(v[hy][x + 2]);
+#pragma unroll
+    for (int y = 0; y < kTileY; ++y)
+#pragma unroll
+      for (int x = 0; x < kTileX; ++x) {
+        const unsigned s =
+            hs[y][x] + hs[y + 1][x] + hs[y + 2][x] + cy[y] * cx[x] * rate;
+        argmin_take(best[y][x], bidx[y][x], static_cast<int>(s), p);
+      }
+  }
+  // per block: the warp's minimum, then block (y, x)'s warp takes the
+  // minimum over the kWarps (8) warps
+#pragma unroll
+  for (int y = 0; y < kTileY; ++y)
+#pragma unroll
+    for (int x = 0; x < kTileX; ++x) {
+      warp_argmin(best[y][x], bidx[y][x]);
+      if (lane == 0) {
+        s_v[y * kTileX + x][warp] = best[y][x];
+        s_i[y * kTileX + x][warp] = bidx[y][x];
       }
     }
-    argmin_take(best, bi, s, p);
-  }
-  block_argmin(best, bi, scratch);
-  const int pny = bi / nyx - r, pnx = bi % nyx - r;
+  __syncthreads();
+  int pv = lane < kWarps ? s_v[warp][lane] : 0x7fffffff;
+  int pi = lane < kWarps ? s_i[warp][lane] : 0x7fffffff;
+  warp_argmin(pv, pi);
+  const int pny = pi / nyx - r, pnx = pi % nyx - r;
 
-  // pass 2: predictor-centred rate, local vs global minimum
-  const int* own = ssd + static_cast<long long>(n) * npos;
-  int bl = 0x7fffffff, il = 0x7fffffff;  // local (masked) minimum
+  // pass 2: warp `warp` rates its own block's table against the pass-1 MV
+  // in 16-byte loads, kVec in flight per lane, from the end of the table
+  // backwards: its last offsets, read last in pass 1, may still be in L2
+  const int gy = ty0 + warp / kTileX, gx = tx0 + warp % kTileX;
+  if (gy >= ny || gx >= nx) return;
+  const int n = gy * nx + gx;
+  const long long start = static_cast<long long>(n) * npos;
+  const long long total = static_cast<long long>(ny) * nx * npos;
+  const long long base = start & ~3LL;  // 16-byte aligned (ssd is)
+  const int nvec = static_cast<int>((start + npos - base + 3) >> 2);
+  auto rate2 = [&](int by, int dx) {  // by = mv_bits of the row's dy
+    return mul_wrap(lam, by + mv_bits(4 * (dx - r - pnx))) >> 8;
+  };
   int bg = 0x7fffffff, ig = 0x7fffffff;  // global minimum
-  for (int p = threadIdx.x; p < npos; p += blockDim.x) {
-    const int dy = p / nyx - r, dx = p % nyx - r;
-    const int bits = mv_bits(4 * (dy - pny)) + mv_bits(4 * (dx - pnx));
-    const int c = own[p] + (mul_wrap(lam, bits) >> 8);
-    const bool local = abs(dy - pny) <= kLocalW && abs(dx - pnx) <= kLocalW;
-    argmin_take(bl, il, local ? c : (1 << 30), p);
-    argmin_take(bg, ig, c, p);
+  // (dy, dx) of the first offset of int4 k0, kept without division as k0
+  // steps down by 32 (offset by 128)
+  int ry = -1, rx = 0;
+  {
+    const int p = static_cast<int>(base + 4LL * (nvec - 1 - lane) - start);
+    if (p >= 0) {
+      ry = p / nyx;
+      rx = p - ry * nyx;
+    } else {
+      rx = p + nyx;
+    }
   }
-  block_argmin(bl, il, scratch);
-  block_argmin(bg, ig, scratch);
-  if (threadIdx.x == 0)
-    idx[n] = (local_only || !(bg + (bl >> 3) < bl)) ? il : ig;
+  for (int k0 = nvec - 1 - lane; k0 >= 0; k0 -= 32 * kVec) {
+    int4 v[kVec];
+#pragma unroll
+    for (int u = 0; u < kVec; ++u) {
+      const int k = k0 - 32 * u;
+      const long long e = base + 4LL * k;
+      if (k >= 0 && e + 4 <= total) {
+        v[u] = __ldg(reinterpret_cast<const int4*>(ssd + e));
+      } else {  // the last table's tail: no read past the tables
+        v[u].x = k >= 0 && e < total ? ssd[e] : 0;
+        v[u].y = k >= 0 && e + 1 < total ? ssd[e + 1] : 0;
+        v[u].z = k >= 0 && e + 2 < total ? ssd[e + 2] : 0;
+        v[u].w = 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kVec; ++u) {
+      const int k = k0 - 32 * u;
+      if (k < 0) break;
+      int p = static_cast<int>(base + 4LL * k - start);  // may be -3 .. -1
+      int dy = ry, dx = rx;
+      rx -= 128;  // to the next int4 of this lane, 128 offsets earlier
+      while (rx < 0) {
+        rx += nyx;
+        --ry;
+      }
+      int by = mv_bits(4 * (dy - r - pny));
+      const int vals[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (p >= 0 && p < npos)
+          argmin_take(bg, ig, add_wrap(vals[q], rate2(by, dx)), p);
+        ++p;
+        if (++dx == nyx) {
+          dx = 0;
+          by = mv_bits(4 * (++dy - r - pny));
+        }
+      }
+    }
+  }
+  warp_argmin(bg, ig);
+
+  // local minimum: the window within +-kLocalW of the pass-1 MV; every
+  // other offset counts 1 << 30, of which the first in row-major order
+  // is the only candidate
+  const int rl = max(0, pny + r - kLocalW);
+  const int rh = min(nyx - 1, pny + r + kLocalW);
+  const int cl = max(0, pnx + r - kLocalW);
+  const int ch = min(nyx - 1, pnx + r + kLocalW);
+  const int wc = ch - cl + 1;
+  const int* own = ssd + start;
+  int bl = 0x7fffffff, il = 0x7fffffff;
+  for (int k = lane; k < (rh - rl + 1) * wc; k += 32) {
+    const int ly = rl + k / wc, lx = cl + k % wc;
+    const int p = ly * nyx + lx;
+    argmin_take(bl, il,
+                add_wrap(own[p], rate2(mv_bits(4 * (ly - r - pny)), lx)), p);
+  }
+  warp_argmin(bl, il);
+  int p_out = -1;  // first offset outside the window
+  if (rl > 0 || cl > 0)
+    p_out = 0;
+  else if (ch < nyx - 1)
+    p_out = ch + 1;
+  else if (rh < nyx - 1)
+    p_out = (rh + 1) * nyx;
+  if (p_out >= 0) argmin_take(bl, il, 1 << 30, p_out);
+  if (lane == 0)
+    idx[n] = (local_only || !(add_wrap(bg, bl >> 3) < bl)) ? il : ig;
 }
 
 }  // namespace
@@ -161,28 +579,51 @@ extern "C" int hevc_ssd_table(const void* roi, long long roi_stride,
                               const void* orig, long long orig_stride,
                               const void* box, long long box_stride, void* out,
                               int size, int r, int ny, int nx, void* stream) {
-  const int aw = 2 * r + size;
-  const int ny4 = (2 * r + 1 + 3) & ~3;
-  const size_t smem = static_cast<size_t>(ny4 + size - 1) * aw + size * size;
-  cudaError_t e = allow_smem(ssd_table_kernel, smem);
-  if (e != cudaSuccess) return e;
-  if (ny > 0 && nx > 0)
-    ssd_table_kernel<<<ny * nx, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(roi), roi_stride,
-        static_cast<const uint8_t*>(orig), orig_stride,
-        static_cast<const int*>(box), box_stride, static_cast<int*>(out), size,
-        r, nx);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (size) {
+    case 8:
+      return launch_ssd_table<8>(roi, roi_stride, orig, orig_stride, box,
+                                 box_stride, out, r, ny, nx, s);
+    case 16:
+      return launch_ssd_table<16>(roi, roi_stride, orig, orig_stride, box,
+                                  box_stride, out, r, ny, nx, s);
+    case 32:
+      return launch_ssd_table<32>(roi, roi_stride, orig, orig_stride, box,
+                                  box_stride, out, r, ny, nx, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
+// ssd: [ny * nx, 2r+1, 2r+1] int32, contiguous and 16-byte aligned.
 extern "C" int hevc_argmin_two_pass(const void* ssd, const void* bits0,
                                     int lam_q8, int r, int ny, int nx,
                                     int local_only, void* idx, void* stream) {
+  const dim3 grid((nx + kTileX - 1) / kTileX, (ny + kTileY - 1) / kTileY);
   if (ny > 0 && nx > 0)
-    argmin_two_pass_kernel<<<ny * nx, kArgminThreads, 0,
+    argmin_two_pass_kernel<<<grid, kArgminThreads, 0,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(ssd), static_cast<const int*>(bits0), lam_q8,
         r, ny, nx, local_only, static_cast<int*>(idx));
+  return cudaGetLastError();
+}
+
+// box: [out_h, out_w] int32 (row stride box_stride) of the uint8 plane roi
+// ([out_h + size - 1, out_w + size - 1], row stride roi_stride).
+extern "C" int hevc_box_energies(const void* roi, long long roi_stride,
+                                 int out_h, int out_w, int size, void* box,
+                                 long long box_stride, void* stream) {
+  const int cw = kBoxCols + size - 1;
+  const size_t smem = static_cast<size_t>(kBoxRows) * cw * sizeof(int) +
+                      static_cast<size_t>(kBoxRows + size - 1) * cw;
+  cudaError_t e = allow_smem(box_energies_kernel, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((out_w + kBoxCols - 1) / kBoxCols,
+                  (out_h + kBoxRows - 1) / kBoxRows);
+  if (out_h > 0 && out_w > 0)
+    box_energies_kernel<<<grid, kBoxCols, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const uint8_t*>(roi), roi_stride, out_h, out_w, size,
+        static_cast<int*>(box), box_stride);
   return cudaGetLastError();
 }

@@ -11,12 +11,14 @@ a local argmin within +-LOCAL_W of the pass-1 MV against the global one).
 This mirrors the reference's predictor-centred MV cost
 (TEncSearch::xPatternSearch costs candidates against the AMVP predictor).
 
-The SSD table and the two-pass argmin are CUDA kernels (csrc/me_ssd.cu);
-each has its plain PyTorch version here, which the wrappers run only for
-tensors on the CPU. The window energies are torch integral-image ops on
-the device. Deep bit depths (the reference's `_ssd_table_deep`), the
-weighted-prediction search (`wp_apply`) and the fractional-refine tables
-are not ported yet: asking for them raises NotImplementedError.
+The SSD table (its correlation on the int8 tensor cores), the window
+energies it reads (a box-sum plane) and the two-pass argmin (one tiled pass
+over the tables) are CUDA kernels (csrc/me_ssd.cu); each has its plain
+PyTorch version here (the window energies' is a torch integral image),
+which the wrappers run only for tensors on the CPU. Deep bit depths (the
+reference's `_ssd_table_deep`), the weighted-prediction search
+(`wp_apply`) and the fractional-refine tables are not ported yet: asking
+for them raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -90,6 +92,26 @@ def _box_energies(p2: torch.Tensor, size: int) -> torch.Tensor:
     return box.to(torch.int32)
 
 
+def box_energies(roi: torch.Tensor, size: int) -> torch.Tensor:
+    """Box-sum plane of the centred squares (roi - 128)^2 of a uint8 plane:
+    [H - size + 1, W - size + 1] int32. On the card one kernel launch;
+    its plain version is `_box_energies` of the squares."""
+    if roi.device.type == "cpu":
+        rc = roi.to(torch.int32) - 128
+        return _box_energies(rc * rc, size)
+    runtime.require(roi, torch.uint8, "box_energies roi", contiguous=False)
+    if roi.stride(1) != 1 or min(roi.shape) < size:
+        raise ValueError("box_energies: bad roi shape or layout")
+    out_h, out_w = roi.shape[0] - size + 1, roi.shape[1] - size + 1
+    box = torch.empty((out_h, out_w), dtype=torch.int32, device=roi.device)
+    lib = runtime.kernel_lib("me_ssd")
+    rc = lib.hevc_box_energies(roi.data_ptr(), roi.stride(0), out_h, out_w,
+                               size, box.data_ptr(), box.stride(0),
+                               runtime.stream_of(roi))
+    runtime.check(lib, rc, "box_energies")
+    return box
+
+
 def _window_energies(p2: torch.Tensor, *, size: int, r: int, ny: int,
                      nx: int) -> torch.Tensor:
     """Per-(block, dy, dx) window energies [ny*nx, nyx, nyx] int32."""
@@ -161,6 +183,9 @@ def _ssd_table(roi, orig, *, size, r, ny, nx):
         return _ssd_table_plain(roi, orig, size=size, r=r, ny=ny, nx=nx)
     aw = 2 * r + size
     nyx = 2 * r + 1
+    if size not in (8, 16, 32):
+        raise ValueError(f"ssd_table: block size {size} is not 8, 16 or 32 "
+                         "(half of an HEVC CTU)")
     runtime.require(roi, torch.uint8, "ssd_table roi", contiguous=False)
     runtime.require(orig, torch.uint8, "ssd_table orig", contiguous=False)
     if (roi.stride(1) != 1 or orig.stride(1) != 1
@@ -168,8 +193,7 @@ def _ssd_table(roi, orig, *, size, r, ny, nx):
             or roi.shape[1] < (nx - 1) * size + aw
             or orig.shape[0] < ny * size or orig.shape[1] < nx * size):
         raise ValueError("ssd_table: bad roi/orig shape or layout")
-    rc = roi.to(torch.int32) - 128
-    box = _box_energies(rc * rc, size)
+    box = box_energies(roi, size)
     out = torch.empty((ny * nx, nyx, nyx), dtype=torch.int32,
                       device=roi.device)
     lib = runtime.kernel_lib("me_ssd")
@@ -239,6 +263,8 @@ def _argmin_two_pass(ssd, bits0, lam_q8, *, r, ny, nx, size):
     runtime.require(bits0, torch.int32, "argmin_two_pass bits0")
     if ssd.shape != (ny * nx, nyx, nyx) or bits0.shape != (nyx, nyx):
         raise ValueError("argmin_two_pass: bad ssd/bits0 shape")
+    if ssd.data_ptr() % 16:
+        raise ValueError("argmin_two_pass: ssd must be 16-byte aligned")
     idx = torch.empty(ny * nx, dtype=torch.int32, device=ssd.device)
     lib = runtime.kernel_lib("me_ssd")
     rc = lib.hevc_argmin_two_pass(ssd.data_ptr(), bits0.data_ptr(),

@@ -1,9 +1,10 @@
 """Full-search SAD tables: the CUDA kernel and its plain PyTorch version.
 
 Counterpart of hevc_tpu/ops/sad_pallas.py (the Pallas TPU kernel
-``_sad_kernel`` / ``sad_table``) and of the fused cost + argmin of
-hevc_tpu/ops/me.py ``full_search_batch_pallas``. The kernels are in
-``csrc/sad.cu``; the note there says what bounds them.
+``_sad_kernel`` / ``sad_table``, and its planes-in variants
+``sad_table_from_planes`` / ``me_from_planes``) and of the fused cost +
+argmin of hevc_tpu/ops/me.py ``full_search_batch_pallas``. The kernels are
+in ``csrc/sad.cu``; the note there says what bounds them.
 
 A wrapper runs its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.
@@ -104,3 +105,133 @@ def full_search_batch_kernel(blks, areas, mv_min_y, mv_min_x, pred_qy,
     row-major minimum. Returns (mv_y, mv_x, cost, sad), each [N] int32."""
     return cost_argmin(sad_table(blks, areas), mv_min_y, mv_min_x, pred_qy,
                        pred_qx, lam_fp)
+
+
+# sample dtypes the planes kernels read (me_ssd.me_dtype gives the first
+# three); the value is the C entry's `sample` code
+_PLANE_SAMPLES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
+
+
+def _bucket(n: int) -> int:
+    """Rows of a planes table: the power-of-two bucket >= max(n, 128)."""
+    return max(128, 1 << (n - 1).bit_length())
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wrap (XLA's int32 arithmetic)."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def _check_planes(ref_padded, orig, size, r, ny, nx, pad):
+    """The shapes sad_pallas.sad_table_from_planes slices without checking:
+    raise where its windows or blocks would leave the planes."""
+    aw = 2 * r + size
+    if ref_padded.dim() != 2 or orig.dim() != 2:
+        raise ValueError("planes: ref_padded and orig must be 2-D planes")
+    if ny < 1 or nx < 1 or size < 1 or r < 0:
+        raise ValueError("planes: empty block grid or negative range")
+    if pad < r:
+        raise ValueError(f"planes: pad {pad} < search range {r}")
+    if (ref_padded.shape[0] < pad - r + (ny - 1) * size + aw
+            or ref_padded.shape[1] < pad - r + (nx - 1) * size + aw):
+        raise ValueError("planes: ref_padded too small for the windows")
+    if orig.shape[0] < ny * size or orig.shape[1] < nx * size:
+        raise ValueError("planes: orig too small for the block grid")
+
+
+def sad_table_from_planes_plain(ref_padded, orig, *, size, r, ny, nx, pad):
+    """Plain version: gather the blocks and their windows as int32 tensors
+    (as the reference does), pad to the bucket with zeros, sad_table_plain."""
+    _check_planes(ref_padded, orig, size, r, ny, nx, pad)
+    aw = 2 * r + size
+    n = ny * nx
+    blks = (orig[:ny * size, :nx * size].to(torch.int32)
+            .reshape(ny, size, nx, size).permute(0, 2, 1, 3)
+            .reshape(n, size, size))
+    roi = ref_padded[pad - r:pad - r + (ny - 1) * size + aw,
+                     pad - r:pad - r + (nx - 1) * size + aw].to(torch.int32)
+    areas = roi.unfold(0, aw, size).unfold(1, aw, size).reshape(n, aw, aw)
+    pad_n = _bucket(n) - n
+    blks = torch.nn.functional.pad(blks, (0, 0, 0, 0, 0, pad_n))
+    areas = torch.nn.functional.pad(areas, (0, 0, 0, 0, 0, pad_n))
+    return sad_table_plain(blks, areas)
+
+
+def _plane_args(ref_padded, orig, name):
+    code = _PLANE_SAMPLES.get(ref_padded.dtype)
+    if code is None or orig.dtype != ref_padded.dtype:
+        raise ValueError(f"{name}: ref_padded and orig must share one of "
+                         f"{sorted(map(str, _PLANE_SAMPLES))}, got "
+                         f"{ref_padded.dtype} / {orig.dtype}")
+    for t, what in ((ref_padded, "ref_padded"), (orig, "orig")):
+        runtime.require(t, t.dtype, f"{name} {what}", contiguous=False)
+        if t.stride(1) != 1:
+            raise ValueError(f"{name}: {what} needs unit column stride")
+    return (ref_padded.data_ptr(), ref_padded.stride(0), orig.data_ptr(),
+            orig.stride(0), code)
+
+
+def sad_table_from_planes(ref_padded: torch.Tensor, orig: torch.Tensor, *,
+                          size: int, r: int, ny: int, nx: int,
+                          pad: int) -> torch.Tensor:
+    """Full-search SAD tables [bucket, 2r+1, 2r+1] int32 of the aligned
+    size x size block grid of `orig` [H, W], each block against its window
+    of `ref_padded` [H+2pad, W+2pad] (sad_pallas.sad_table_from_planes).
+    bucket = max(128, next power of two >= ny*nx); padded rows are 0."""
+    if ref_padded.device.type == "cpu":
+        return sad_table_from_planes_plain(ref_padded, orig, size=size, r=r,
+                                           ny=ny, nx=nx, pad=pad)
+    _check_planes(ref_padded, orig, size, r, ny, nx, pad)
+    args = _plane_args(ref_padded, orig, "sad_table_from_planes")
+    nyx = 2 * r + 1
+    bucket = _bucket(ny * nx)
+    out = torch.empty((bucket, nyx, nyx), dtype=torch.int32,
+                      device=ref_padded.device)
+    lib = runtime.kernel_lib("sad")
+    rc = lib.hevc_sad_table_planes(*args, out.data_ptr(), size, r, ny, nx,
+                                   pad, bucket, runtime.stream_of(orig))
+    runtime.check(lib, rc, "sad_table_planes")
+    return out
+
+
+def me_from_planes_plain(ref_padded, orig, bits, lam_fp, *, size, r, ny,
+                         nx, pad):
+    """Plain version: the SAD tables, cost = sad + ((lam_fp * bits) >> 16)
+    in wrapping int32, and the first row-major minimum per row."""
+    sads = sad_table_from_planes_plain(ref_padded, orig, size=size, r=r,
+                                       ny=ny, nx=nx, pad=pad)
+    rate = _wrap32(_lam32(lam_fp) * bits.to(torch.int64)) >> 16
+    cost = _wrap32(sads.to(torch.int64) + rate.to(torch.int64)[None])
+    return torch.argmin(cost.reshape(cost.shape[0], -1),
+                        dim=1).to(torch.int32)
+
+
+def _lam32(lam_fp) -> int:
+    """lam_fp (an int or a one-element tensor) as int32, wrapped."""
+    return ((int(lam_fp) + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def me_from_planes(ref_padded: torch.Tensor, orig: torch.Tensor,
+                   bits: torch.Tensor, lam_fp, *, size: int, r: int, ny: int,
+                   nx: int, pad: int) -> torch.Tensor:
+    """The planes-in full search fused end to end (sad_pallas.
+    me_from_planes): per bucket row the first row-major minimum index of
+    sad + ((lam_fp * bits) >> 16), bits [2r+1, 2r+1] int32 -> [bucket]
+    int32. One launch on the card; no table is written."""
+    nyx = 2 * r + 1
+    if tuple(bits.shape) != (nyx, nyx):
+        raise ValueError(f"me_from_planes: bits must be [{nyx}, {nyx}]")
+    if ref_padded.device.type == "cpu":
+        return me_from_planes_plain(ref_padded, orig, bits, lam_fp,
+                                    size=size, r=r, ny=ny, nx=nx, pad=pad)
+    _check_planes(ref_padded, orig, size, r, ny, nx, pad)
+    args = _plane_args(ref_padded, orig, "me_from_planes")
+    runtime.require(bits, torch.int32, "me_from_planes bits")
+    bucket = _bucket(ny * nx)
+    idx = torch.empty(bucket, dtype=torch.int32, device=ref_padded.device)
+    lib = runtime.kernel_lib("sad")
+    rc = lib.hevc_me_planes(*args, bits.data_ptr(), _lam32(lam_fp),
+                            idx.data_ptr(), size, r, ny, nx, pad, bucket,
+                            runtime.stream_of(orig))
+    runtime.check(lib, rc, "me_planes")
+    return idx

@@ -82,6 +82,126 @@ def test_me_kernels_match_plain(dev, kind, size, r):
                                       local_only=False))
 
 
+def _edge_planes(kind, h, w, seed):
+    """orig and reference planes whose centred samples reach -128 and 127."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        return (rng.integers(0, 256, (h, w)).astype(np.uint8),
+                rng.integers(0, 256, (h, w)).astype(np.uint8))
+    lo, hi = np.zeros((h, w), np.uint8), np.full((h, w), 255, np.uint8)
+    return {"zeros": (lo, lo), "full": (hi, hi), "zeros_vs_full": (lo, hi),
+            "full_vs_zeros": (hi, lo)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros", "full", "zeros_vs_full",
+                                  "full_vs_zeros"])
+@pytest.mark.parametrize("r", [1, 3, 16, 64])
+@pytest.mark.parametrize("size", [8, 16, 32])
+def test_ssd_table_edge_shapes(dev, size, r, kind):
+    """The tensor-core SSD table equals its plain version on grids and
+    offset counts that are no multiple of its tiles, and at the extreme
+    samples (all 0 / all 255)."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    ny, nx = 3, 5
+    orig, ref = _edge_planes(kind, ny * size + 2, nx * size + 3,
+                             seed=size * 100 + r)
+    o = torch.from_numpy(orig).to(dev)
+    refp = me_ssd.pad_ref_device(torch.from_numpy(ref).to(dev), PAD)
+    aw = 2 * r + size
+    roi = refp[PAD - r:PAD - r + (ny - 1) * size + aw,
+               PAD - r:PAD - r + (nx - 1) * size + aw]
+    kw = dict(size=size, r=r, ny=ny, nx=nx)
+    before = runtime.launches["ssd_table"]
+    got = me_ssd._ssd_table(roi, o, **kw)
+    assert runtime.launches["ssd_table"] == before + 1
+    _eq(got, me_ssd._ssd_table_plain(roi, o, **kw))
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros", "full"])
+@pytest.mark.parametrize("size,h,w", [(8, 8, 8), (16, 47, 301), (32, 200, 133),
+                                      (32, 1216, 2048)])
+def test_box_energies_match_plain(dev, size, h, w, kind):
+    """The window-energy kernel equals the torch integral image, on planes
+    that are no multiple of its 32 x 128 output tile and on a row-strided
+    view."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    plane, _ = _edge_planes(kind, h + 5, w + 9, seed=h + w)
+    p = torch.from_numpy(plane).to(dev)[3:3 + h, 7:7 + w]
+    before = runtime.launches["box_energies"]
+    got = me_ssd.box_energies(p, size)
+    assert runtime.launches["box_energies"] == before + 1
+    assert got.shape == (h - size + 1, w - size + 1)
+    rc = p.to(torch.int32) - 128
+    _eq(got, me_ssd._box_energies(rc * rc, size))
+
+
+@pytest.mark.parametrize("local_only", [False, True])
+@pytest.mark.parametrize("table", ["random", "flat", "huge"])
+@pytest.mark.parametrize("r,ny,nx", [(1, 1, 1), (3, 3, 5), (3, 9, 2),
+                                     (16, 5, 9), (16, 4, 4), (64, 6, 7)])
+def test_argmin_two_pass_edge_shapes(dev, monkeypatch, r, ny, nx, table,
+                                     local_only):
+    """The tiled two-pass argmin equals its plain version on grids that are
+    no multiple of its 2 x 4 tile, on a flat table (all ties), on values
+    near 1 << 30 (int32 wrap in the 3x3 sums, masked offsets winning the
+    local minimum), with HEVC_TPU_ME_LOCAL_ONLY's branch on and off."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    monkeypatch.setattr(me_ssd, "_local_only", lambda *a: local_only)
+    nyx = 2 * r + 1
+    rng = np.random.default_rng(r * 31 + ny * nx)
+    shape = (ny * nx, nyx, nyx)
+    if table == "random":
+        ssd = rng.integers(0, 1 << 20, shape)
+    elif table == "flat":
+        ssd = np.zeros(shape)
+    else:
+        ssd = rng.integers((1 << 30) - (1 << 16), (1 << 30) + (1 << 16),
+                           shape)
+    ssd = torch.from_numpy(ssd.astype(np.int32)).to(dev)
+    bits0 = me_ssd._bits0_dev(r, dev)
+    for lam_q8 in (1, me_ssd.lam_q8_of(120000), 1 << 20):
+        before = runtime.launches["argmin_two_pass"]
+        got = me_ssd._argmin_two_pass(ssd, bits0, lam_q8, r=r, ny=ny, nx=nx,
+                                      size=16)
+        assert runtime.launches["argmin_two_pass"] == before + 1
+        _eq(got, me_ssd._argmin_two_pass_plain(
+            ssd, bits0, lam_q8, r=r, ny=ny, nx=nx, local_only=local_only))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int16, torch.int32])
+@pytest.mark.parametrize("size,r,ny,nx,pad", [(8, 2, 3, 4, 4),
+                                              (16, 4, 2, 5, 6),
+                                              (32, 16, 3, 3, 16),
+                                              (32, 64, 2, 3, 80)])
+def test_planes_kernels_match_plain(dev, size, r, ny, nx, pad, dtype):
+    """sad_table_planes and me_planes (one fused launch) against their plain
+    versions, bucket padding included."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import sad
+    rng = np.random.default_rng(size + r + ny)
+    top = 256 if dtype == torch.uint8 else 1 << 14
+    h, w = ny * size + 3, nx * size + 5
+    ref = torch.from_numpy(rng.integers(0, top, (h + 2 * pad, w + 2 * pad))
+                           ).to(dtype).to(dev)
+    orig = torch.from_numpy(rng.integers(0, top, (h, w))).to(dtype).to(dev)
+    kw = dict(size=size, r=r, ny=ny, nx=nx, pad=pad)
+    before = dict(runtime.launches)
+    got = sad.sad_table_from_planes(ref, orig, **kw)
+    assert runtime.launches["sad_table_planes"] == \
+        before["sad_table_planes"] + 1
+    _eq(got, sad.sad_table_from_planes_plain(ref, orig, **kw))
+    nyx = 2 * r + 1
+    bits = torch.from_numpy(rng.integers(0, 40, (nyx, nyx)).astype(
+        np.int32)).to(dev)
+    for lam_fp in (0, 90000, -(1 << 30)):
+        k = sad.me_from_planes(ref, orig, bits, lam_fp, **kw)
+        _eq(k, sad.me_from_planes_plain(ref, orig, bits, lam_fp, **kw))
+    assert runtime.launches["me_planes"] == before["me_planes"] + 3
+
+
 def test_encode_on_card_matches_cpu(dev):
     """The same LDP encode (prefetch off, then the CLI flow with the
     one-frame lookahead) on the card and on the CPU: identical bytes."""

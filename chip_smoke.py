@@ -18,9 +18,19 @@ Phases, each printed on its own line with its seconds:
   4. encode 416x240 (13 frames) on the card and on the CPU: the streams
      must match;
   5. encode 416x240 4:2:2 (the fallback inter path and its SAD kernels);
-  6. report the card.
-The input is synthetic moving texture made from --seed with numpy. The
-last two lines are a JSON object with every kernel's numbers and the
+  6. encode 1920x1080 8-bit all-intra (HM's encoder_intra_main settings)
+     through the CLI entry point on the card, with the launch counters
+     reset just before it: every picture runs the intra prescreen kernel;
+  7. encode 416x240 all-intra on the card and on the CPU: the streams must
+     match, which holds the prescreen kernel to its plain version inside
+     the encoder;
+  8. decode every stream of phases 3-7 with the port's own decoder: every
+     picture's MD5 SEI must check and the picture counts must match;
+  9. report the card.
+Phase 2 also holds the intra prescreen kernel to its plain version on
+1080p planes (8-bit, 10-bit, and one with flat regions where many modes
+tie). The input is synthetic moving texture made from --seed with numpy.
+The last two lines are a JSON object with every kernel's numbers and the
 result {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
 import argparse
@@ -41,6 +51,8 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 LDP_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
                        "encoder_lowdelay_P_main.cfg")
+INTRA_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
+                         "encoder_intra_main.cfg")
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8
 # tensor-core ops/s, and 32-bit scalar (non-tensor-core) ops/s
 HBM_BPS = 3.35e12
@@ -50,8 +62,12 @@ PAD = 80
 # frames of the LDP encodes: POC 10 is the first picture whose four
 # reference deltas all land on coded pictures
 N_FRAMES = 13
-# md5 of the 1080p stream for --seed 1, as recorded in PERF.md
+# frames of the all-intra encodes
+N_INTRA = 5
+# md5 of the 1080p streams for --seed 1, as recorded in PERF.md: low-delay
+# P, and all-intra
 HD_MD5_SEED1 = "3c38a4a0a2472e9637789e622fb401e7"
+HD_INTRA_MD5_SEED1 = "825b596a8ee1b95f8cc1340e97ffb230"
 
 
 def log(msg):
@@ -296,6 +312,7 @@ def check_kernels(frames, results):
     log(f"  ssd_table kernel alone (both grids, box plane precomputed, "
         f"queued): {alone_ms:.4f} ms")
     time_torch_ops(frames, dev)
+    check_intra_screen(frames, results)
 
     # --- SAD table + fused cost/argmin at the fallback path's 1080p shape
     size, R = 32, 64
@@ -361,12 +378,10 @@ def check_kernels(frames, results):
 
 
 def time_torch_ops(frames, dev):
-    """Times of the main path's device work that is torch tensor ops, not a
+    """Time of the main path's device work that is torch tensor ops, not a
     kernel of this package (the reference ran it as XLA programs): the
-    reference padding (_pad_edge_dev) and the IDR's intra prescreen (every
-    _screen_chunk call of a 1080p frame, sizes 4 to 32). Logged only."""
-    from hevc_tpu_torch import runtime
-    from hevc_tpu_torch.ops import intra_screen, me_ssd
+    reference padding (_pad_edge_dev). Logged only."""
+    from hevc_tpu_torch.ops import me_ssd
     h, w = frames[0].shape
     plane = torch.from_numpy(frames[0]).to(dev)
     ms = cuda_ms(lambda: me_ssd._pad_edge_dev(plane, PAD), 20)
@@ -374,25 +389,78 @@ def time_torch_ops(frames, dev):
     bms, by = bound_ms(nbytes, 0, SCALAR32_OPS)
     log(f"  _pad_edge_dev {w}x{h} pad {PAD}: {ms:.4f} ms, bound "
         f"{bms:.4f} ms ({by})")
-    p = np.empty((h + 1, w + 1), np.int16)
-    p[1:, 1:] = frames[0]
-    p[0, :] = p[:, 0] = 128
-    p_flat = runtime.upload(p, dev).reshape(-1).to(torch.int32)
-    lam_tab = torch.zeros(35, dtype=torch.int32, device=dev)
-    plan = intra_screen._frame_plan(w, h, (2, 3, 4, 5), dev)
 
-    def screen():
-        for (_, n, _, _, k, _, chunks) in plan:
-            for (_, _, fi, bi) in chunks:
-                intra_screen._screen_chunk(p_flat, fi, bi, lam_tab, size=n,
-                                           bit_depth=8, k=k)
-    ms = cuda_ms(screen, 3)
-    # about 13 operations per sample, mode and size: the angular
-    # prediction (~4) and the difference, 2-D Hadamard, abs and sum (~9)
-    ops = 13.0 * 35 * 4 * h * w
-    bms, by = bound_ms(p_flat.numel() * 4 + h * w * 4, ops, SCALAR32_OPS)
-    log(f"  _screen_chunk, all calls of a {w}x{h} IDR (4x4 to 32x32): "
-        f"{ms:.3f} ms, bound {bms:.4f} ms ({by}, ~{ops / 1e9:.1f} G ops)")
+
+def check_intra_screen(frames, results):
+    """The intra prescreen kernel (all four block sizes, one launch each)
+    against its plain version (the torch ops it replaces) on 1080p planes:
+    the 8-bit frame, the same at 10 bits, and the frame with flat 64x64
+    patches where many modes tie. The mode costs are the encoder's at QP
+    32. Exact equality; the 8-bit plane is timed."""
+    from hevc_tpu_torch.ops import intra_screen
+    dev = torch.device("cuda")
+    h, w = frames[0].shape
+    sqrt_lam = (0.57 * 2.0 ** ((32 - 12) / 3.0)) ** 0.5
+    lam_tab = torch.tensor([round(sqrt_lam * intra_screen._mode_bits_est(m))
+                            for m in range(35)], dtype=torch.int32,
+                           device=dev)
+    flat = frames[1].astype(np.int16)
+    for y0 in range(0, h - 64, 128):
+        for x0 in range(0, w - 64, 128):
+            flat[y0:y0 + 64, x0:x0 + 64] = 60 + (y0 + x0) // 16
+    planes = {"8-bit": (frames[0].astype(np.int16), 8),
+              "10-bit": ((frames[1].astype(np.int16) << 2)
+                         | (frames[0].astype(np.int16) & 3), 10),
+              "8-bit flat regions": (flat, 8)}
+    err = 0
+    for name, (y, bd) in planes.items():
+        p = np.full((h + 1, w + 1), 1 << (bd - 1), np.int16)
+        p[1:, 1:] = y
+        plane = torch.from_numpy(p).to(dev)
+        got = intra_screen.intra_screen(plane, lam_tab, bit_depth=bd)
+        exp = intra_screen.intra_screen_plain(plane, lam_tab, bit_depth=bd)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(a, b) for a, b in zip(got, exp))
+        same_shape = all(a.shape == b.shape and a.dtype == b.dtype
+                         for a, b in zip(got, exp))
+        log(f"  intra_screen {w}x{h} {name} (sizes 4-32, "
+            f"{got[1].numel()} blocks, {got[0].numel()} candidates): "
+            f"max_abs_err {e}")
+        if e != 0 or not same_shape:
+            raise AssertionError(f"intra_screen disagrees with its plain "
+                                 f"version on the {name} plane")
+        err = max(err, e)
+        if name == "8-bit":
+            timed = (plane, got)
+    plane, got = timed
+    fn = lambda: intra_screen.intra_screen(  # noqa: E731
+        plane, lam_tab, bit_depth=8)
+    ms, q_ms = cuda_ms(fn, 20), cuda_ms(fn, 20, queued=True)
+    pms = cuda_ms(lambda: intra_screen.intra_screen_plain(
+        plane, lam_tab, bit_depth=8), 3)
+    per_size = {1 << lg: cuda_ms(lambda lg=lg: intra_screen.intra_screen(
+        plane, lam_tab, bit_depth=8, log2s=(lg,)), 20, queued=True)
+        for lg in (2, 3, 4, 5)}
+    log("  intra_screen per launch, queued (ms): " + ", ".join(
+        f"{n}x{n} {t:.4f}" for n, t in per_size.items()))
+    # operations per predicted sample and mode: the angular blend (6), the
+    # difference (1), the butterflies (2 log2 of the tile side), abs and
+    # sum (2); samples: the blocks' own, per size
+    ops = sum(35.0 * b * n * n * (9 + (6 if n >= 8 else 4))
+              for (_, n, _, _, _, b) in intra_screen._sizes(
+                  w, h, (2, 3, 4, 5)))
+    nbytes = plane.numel() * 2 + 35 * 4 + got[0].numel() + \
+        got[1].numel() * 4
+    bms, by = bound_ms(nbytes, ops, SCALAR32_OPS)
+    results["intra_screen"] = {
+        "name": "intra_screen", "route": "cuda",
+        "source": "hevc_tpu_torch/csrc/intra_screen.cu",
+        "replaces": "hevc_tpu/ops/intra_screen.py:96", "max_abs_err": err,
+        "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+        "library_ms": None}
+    log(f"  intra_screen (one 1080p picture, four launches): kernel_ms "
+        f"{ms:.4f} (queued {q_ms:.4f}) plain_ms (torch ops) {pms:.3f} "
+        f"bound_ms {bms:.4f} ({by}, {ops / 1e9:.2f} G ops)")
 
 
 def check_planes(orig, refp, lam_fp, results):
@@ -456,13 +524,15 @@ def check_planes(orig, refp, lam_fp, results):
             f"bound_ms {bms:.4f} ({by})")
 
 
-def encode(tmp, name, w, h, n, seed, device, chroma=420, recon=False):
-    """One CLI encode; returns (stream bytes, seconds, CLI stdout)."""
+def encode(tmp, name, w, h, n, seed, device, chroma=420, recon=False,
+           cfg=LDP_CFG):
+    """One CLI encode; returns (stream bytes, seconds, CLI stdout, luma
+    planes). Every stream is kept in `streams` for the decode phase."""
     from hevc_tpu_torch.cli.encode import main
     clip = os.path.join(tmp, f"{name}.yuv")
     frames = write_clip(clip, w, h, n, seed, chroma)
     out = os.path.join(tmp, f"{name}.bin")
-    args = ["-c", LDP_CFG, "-i", clip, "-wdt", str(w), "-hgt", str(h),
+    args = ["-c", cfg, "-i", clip, "-wdt", str(w), "-hgt", str(h),
             "-f", str(n), "-b", out]
     if chroma != 420:
         args.append(f"--InputChromaFormat={chroma}")
@@ -478,7 +548,32 @@ def encode(tmp, name, w, h, n, seed, device, chroma=420, recon=False):
         raise RuntimeError(f"{name}: encoder exited with {rc}")
     with open(out, "rb") as fh:
         stream = fh.read()
+    streams[name] = (stream, n)
     return stream, secs, buf.getvalue(), frames
+
+
+# name -> (stream bytes, picture count) of every encode of this run
+streams = {}
+
+
+def check_hd_encode(stream, secs, out, frames, tmp, name, md5_seed1, seed):
+    """Log and check a 1080p encode: md5 (against its anchor for --seed 1),
+    start code, and finite recon PSNR above 25 dB."""
+    from hevc_tpu_torch.utils.timing import timers
+    ps = psnr_y(frames, os.path.join(tmp, f"{name}_rec.yuv"), 1920, 1080)
+    fps_line = [ln for ln in out.splitlines() if "fps" in ln]
+    md5 = hashlib.md5(stream).hexdigest()
+    log(f"  {len(stream)} bytes, md5 {md5}"
+        f", {secs:.2f} s incl. warm-up; CLI: {fps_line[-1].strip()}")
+    log(f"  Y-PSNR per frame: {[round(float(p), 3) for p in ps]}")
+    log(f"  host/device sections (s): {timers.summary()}")
+    if not stream.startswith(b"\x00\x00\x00\x01"):
+        raise AssertionError("stream does not start with a start code")
+    if seed == 1 and md5_seed1 is not None and md5 != md5_seed1:
+        raise AssertionError(f"{name} stream md5 {md5}, expected "
+                             f"{md5_seed1} for --seed 1")
+    if not all(np.isfinite(ps)) or min(ps) < 25.0:
+        raise AssertionError(f"recon PSNR too low: {ps}")
 
 
 def psnr_y(frames, rec_path, w, h):
@@ -543,21 +638,9 @@ def main():
                 recon=True)
             timers.enabled = False
             main_launches = dict(runtime.launches)
-            ps = psnr_y(frames, os.path.join(tmp, "hd_rec.yuv"), 1920, 1080)
-            fps_line = [ln for ln in out.splitlines() if "fps" in ln]
-            md5 = hashlib.md5(stream).hexdigest()
-            log(f"  {len(stream)} bytes, md5 {md5}"
-                f", {secs:.2f} s incl. warm-up; CLI: {fps_line[-1].strip()}")
-            log(f"  Y-PSNR per frame: {[round(float(p), 3) for p in ps]}")
-            log(f"  host/device sections (s): {timers.summary()}")
+            check_hd_encode(stream, secs, out, frames, tmp, "hd",
+                            HD_MD5_SEED1, args.seed)
             log(f"  launches: {main_launches}")
-            if not stream.startswith(b"\x00\x00\x00\x01"):
-                raise AssertionError("stream does not start with a start code")
-            if args.seed == 1 and md5 != HD_MD5_SEED1:
-                raise AssertionError(f"1080p stream md5 {md5}, expected "
-                                     f"{HD_MD5_SEED1} for --seed 1")
-            if not all(np.isfinite(ps)) or min(ps) < 25.0:
-                raise AssertionError(f"recon PSNR too low: {ps}")
             for k in ("ssd_table", "argmin_two_pass", "box_energies"):
                 if main_launches[k] <= 0:
                     raise AssertionError(f"{k} was never launched")
@@ -587,7 +670,55 @@ def main():
                     raise AssertionError(f"{k} was never launched")
                 results[k]["launches"] = fb_launches[k]
 
-        with Phase("6 card"):
+        with Phase("6 encode 1920x1080 all-intra on cuda"):
+            runtime.reset_launches()
+            timers.reset()
+            timers.enabled = True
+            stream, secs, out, frames = encode(
+                tmp, "hd_intra", 1920, 1080, N_INTRA, args.seed, "cuda",
+                recon=True, cfg=INTRA_CFG)
+            timers.enabled = False
+            intra_launches = dict(runtime.launches)
+            check_hd_encode(stream, secs, out, frames, tmp, "hd_intra",
+                            HD_INTRA_MD5_SEED1, args.seed)
+            log(f"  launches: {intra_launches}")
+            if intra_launches["intra_screen"] < N_INTRA:
+                raise AssertionError(
+                    f"intra_screen launched {intra_launches['intra_screen']}"
+                    f" times for {N_INTRA} pictures")
+            results["intra_screen"]["launches"] = \
+                intra_launches["intra_screen"]
+
+        with Phase("7 416x240 all-intra cuda vs cpu"):
+            s_gpu, t_gpu, _, _ = encode(tmp, "cif_intra_gpu", 416, 240,
+                                        N_INTRA, args.seed, "cuda",
+                                        cfg=INTRA_CFG)
+            s_cpu, t_cpu, _, _ = encode(tmp, "cif_intra_cpu", 416, 240,
+                                        N_INTRA, args.seed, "cpu",
+                                        cfg=INTRA_CFG)
+            log(f"  cuda {len(s_gpu)} bytes md5 "
+                f"{hashlib.md5(s_gpu).hexdigest()} {t_gpu:.2f} s; cpu "
+                f"{len(s_cpu)} bytes md5 {hashlib.md5(s_cpu).hexdigest()} "
+                f"{t_cpu:.2f} s")
+            if s_gpu != s_cpu:
+                raise AssertionError("all-intra cuda and cpu streams differ")
+
+        with Phase("8 decode every stream with the port's decoder"):
+            from hevc_tpu_torch.decoder.top import DecoderTop
+            for name, (data, n) in streams.items():
+                dec = DecoderTop()
+                t0 = time.perf_counter()
+                pics = sum(1 for _ in dec.decode_stream(data))
+                secs = time.perf_counter() - t0
+                ok = sum(st == "OK" for st in dec.hash_status)
+                log(f"  {name}: {pics} pictures, {ok} hashes OK, "
+                    f"{secs:.2f} s")
+                if pics != n or dec.hash_status != ["OK"] * n:
+                    raise AssertionError(
+                        f"{name}: decoded {pics} of {n} pictures, hash "
+                        f"status {dec.hash_status}")
+
+        with Phase("9 card"):
             smi = subprocess.run(
                 ["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"], capture_output=True, text=True,
@@ -600,7 +731,8 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
 
     order = ["ssd_table", "argmin_two_pass", "box_energies", "sad_table",
-             "sad_cost_argmin", "sad_table_planes", "me_planes"]
+             "sad_cost_argmin", "sad_table_planes", "me_planes",
+             "intra_screen"]
     kernels = [results[k] for k in order]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

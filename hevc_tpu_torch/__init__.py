@@ -11,8 +11,11 @@ bound with ctypes, see ``runtime.py``):
   two-pass argmin kernels), one search per P frame and reference.
 * ``ops/sad.py``     — the full-search SAD-table kernel and its fused
   lambda·mv-bits argmin, used by the Python fallback inter encoder.
-* ``ops/intra_screen.py`` — the I-slice 35-mode SATD prescreen as torch
-  tensor ops on the device.
+* ``ops/intra_screen.py`` — the I-slice 35-mode SATD prescreen kernel,
+  one launch per block size, on every picture of an all-intra sequence.
+
+``decoder/`` and ``cli/decode.py`` are a host-only copy of the reference's
+decoder: they check the MD5 picture-hash SEI of every decoded picture.
 
 Module names mirror ``hevc_tpu`` so each counterpart is easy to find. The
 package never imports ``jax`` or ``hevc_tpu``. Entry points take an explicit

@@ -5,9 +5,8 @@ TEncSearch::estIntraPredLumaQT (TEncSearch.cpp:2184) builds a per-PU
 candidate mode list by Hadamard SATD over all 35 modes before the expensive
 RD loop. Every aligned block of one size forms a batch; reference vectors
 come from ORIGINAL pixels, so the blocks are independent and the frame's
-35-mode predict + SATD runs as batched torch tensor ops on the device
-(ops.intra.predict_all_modes + ops.satd.satd_batch). The native engine
-consumes the top-k candidate modes per block (engine.cpp intra_try_list).
+35-mode predict + SATD runs on the device. The native engine consumes the
+top-k candidate modes per block (engine.cpp intra_try_list).
 
 k follows the reference's g_aucIntraModeNumFast (TComRom.cpp:60): 8
 candidates for 8x8, 3 for 16x16/32x32; 4x4 blocks give costs only.
@@ -16,8 +15,12 @@ Out-of-frame reference rows/cols take the mid-level value (the spec's
 no-reference substitution, 8.4.4.2.2, approximated); the final mode choice
 is re-ranked against true recon references in the engine.
 
-These are tensor ops, not a hand-written kernel yet (the JAX package ran
-them as XLA programs); the kernel is queued in ROADMAP.md.
+On a card, `intra_screen` launches the hand-written kernel
+csrc/intra_screen.cu once per block size, computing every address from the
+block position. Its plain version, `intra_screen_plain`, is the torch
+tensor ops of `_screen_chunk` (ops.intra.predict_all_modes +
+ops.satd.satd_batch) over static gather tables (`_frame_plan`); it runs
+for CPU tensors only.
 """
 from __future__ import annotations
 
@@ -105,29 +108,91 @@ def _screen_chunk(p_flat, fi, bi, lam_tab, *, size, bit_depth, k):
     return (top & 63).to(torch.uint8), best
 
 
-@functools.lru_cache(maxsize=16)
-def _frame_plan(w: int, h: int, log2s: tuple, device: torch.device):
-    """Per-resolution plan: device-resident gather tables for every
-    (size, chunk), uploaded once per process, resolution and device."""
-    plan = []
+def _sizes(w: int, h: int, log2s: tuple):
+    """(log2, n, ny, nx, k, b) of every block size that fits the frame, in
+    the order of the packed outputs."""
+    out = []
     for log2 in log2s:
         n = 1 << log2
         ny, nx = h // n, w // n
-        if ny == 0 or nx == 0:
-            continue
-        k = K_OF_LOG2[log2]
+        if ny and nx:
+            out.append((log2, n, ny, nx, K_OF_LOG2[log2], ny * nx))
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def _frame_plan(w: int, h: int, log2s: tuple, device: torch.device):
+    """The plain version's gather tables for every (size, chunk), uploaded
+    once per process, resolution and device."""
+    plan = []
+    for (log2, n, ny, nx, k, b) in _sizes(w, h, log2s):
         f_idx, blk_idx = _index_maps(n, ny, nx, w, h)
-        b = ny * nx
         chunks = []
         for s in range(0, b, _CHUNK):
             e = min(s + _CHUNK, b)
-            chunks.append((s, e,
-                           runtime.upload(f_idx[s:e].astype(np.int64),
+            chunks.append((runtime.upload(f_idx[s:e].astype(np.int64),
                                           device),
                            runtime.upload(blk_idx[s:e].astype(np.int64),
                                           device)))
-        plan.append((log2, n, ny, nx, k, b, chunks))
+        plan.append((n, k, chunks))
     return plan
+
+
+def intra_screen_plain(plane: torch.Tensor, lam_tab: torch.Tensor, *,
+                       bit_depth: int, log2s=(2, 3, 4, 5)):
+    """Plain version of `intra_screen`: `_screen_chunk` over the gather
+    tables of `_frame_plan`, chunk by chunk."""
+    h, w = plane.shape[0] - 1, plane.shape[1] - 1
+    p_flat = plane.reshape(-1).to(torch.int32)
+    cands, costs = [], []
+    for (n, k, chunks) in _frame_plan(w, h, tuple(log2s), plane.device):
+        for (fi, bi) in chunks:
+            idx, cost = _screen_chunk(p_flat, fi, bi, lam_tab, size=n,
+                                      bit_depth=bit_depth, k=k)
+            if idx is not None:
+                cands.append(idx.reshape(-1))
+            costs.append(cost)
+    return (torch.cat(cands) if cands else
+            torch.zeros(0, dtype=torch.uint8, device=plane.device),
+            torch.cat(costs))
+
+
+def intra_screen(plane: torch.Tensor, lam_tab: torch.Tensor, *,
+                 bit_depth: int, log2s=(2, 3, 4, 5)):
+    """The prescreen of every aligned block of sizes 1 << log2s.
+
+    plane: the padded int16 plane [h+1, w+1] (P[y+1, x+1] = orig[y, x]; row
+    0 and column 0 hold 1 << (bit_depth-1)); lam_tab: int32 [35], the mode
+    cost added to each SATD. Returns the packed (cands uint8 [sum b*k],
+    costs int32 [sum b]), size by size in the order of log2s, block-row
+    major. On a card one kernel launch per size; CPU tensors take
+    `intra_screen_plain`."""
+    if plane.device.type == "cpu":
+        return intra_screen_plain(plane, lam_tab, bit_depth=bit_depth,
+                                  log2s=log2s)
+    runtime.require(plane, torch.int16, "intra_screen plane")
+    runtime.require(lam_tab, torch.int32, "intra_screen lam_tab")
+    if not 8 <= bit_depth <= 14 or lam_tab.numel() != 35:
+        raise ValueError("intra_screen: bit depth 8-14 and 35 mode costs")
+    h, w = plane.shape[0] - 1, plane.shape[1] - 1
+    sizes = _sizes(w, h, tuple(log2s))
+    dev = plane.device
+    cands = torch.empty(sum(b * k for (*_, k, b) in sizes),
+                        dtype=torch.uint8, device=dev)
+    costs = torch.empty(sum(b for (*_, b) in sizes), dtype=torch.int32,
+                        device=dev)
+    lib = runtime.kernel_lib("intra_screen")
+    stream = runtime.stream_of(plane)
+    offi = offc = 0
+    for (log2, n, ny, nx, k, b) in sizes:
+        rc = lib.hevc_intra_screen(
+            plane.data_ptr(), plane.stride(0), h, w, lam_tab.data_ptr(),
+            bit_depth, n, ny, nx, k, cands.data_ptr() + offi,
+            costs.data_ptr() + 4 * offc, stream)
+        runtime.check(lib, rc, "intra_screen")
+        offi += b * k
+        offc += b
+    return cands, costs
 
 
 def screen_frame_async(orig_y: np.ndarray, bit_depth: int, sqrt_lam: float,
@@ -152,30 +217,21 @@ def screen_frame_async(orig_y: np.ndarray, bit_depth: int, sqrt_lam: float,
     p[1:, 1:] = orig_y
     p[0, :] = mid
     p[:, 0] = mid
-    p_flat = runtime.upload(p, dev).reshape(-1).to(torch.int32)
     lam_tab = runtime.upload(np.array(
         [round(sqrt_lam * _mode_bits_est(m)) for m in range(35)], np.int32),
         dev)
-    plan = _frame_plan(w, h, tuple(log2s), dev)
-    cands, costs = [], []
-    for (log2, n, ny, nx, k, b, chunks) in plan:
-        for (s, e, fi, bi) in chunks:
-            idx, cost = _screen_chunk(p_flat, fi, bi, lam_tab, size=n,
-                                      bit_depth=bit_depth, k=k)
-            if idx is not None:
-                cands.append(idx.reshape(-1))
-            costs.append(cost)
-    packed_idx = runtime.Readback(torch.cat(cands) if cands else
-                                  torch.zeros(0, dtype=torch.uint8,
-                                              device=dev))
-    packed_cost = runtime.Readback(torch.cat(costs))
+    cands, costs = intra_screen(runtime.upload(p, dev), lam_tab,
+                                bit_depth=bit_depth, log2s=log2s)
+    packed_idx = runtime.Readback(cands)
+    packed_cost = runtime.Readback(costs)
+    sizes = _sizes(w, h, tuple(log2s))
 
     def resolve():
         flat_i = packed_idx.result()
         flat_c = packed_cost.result()
         out = {}
         offi = offc = 0
-        for (log2, n, ny, nx, k, b, chunks) in plan:
+        for (log2, n, ny, nx, k, b) in sizes:
             out[log2] = (flat_i[offi:offi + b * k].reshape(ny, nx, k)
                          .astype(np.uint8),
                          flat_c[offc:offc + b].astype(np.int64)

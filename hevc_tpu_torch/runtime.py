@@ -37,7 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # kernel name -> launches since the last reset()
 launches: dict = {"sad_table": 0, "sad_cost_argmin": 0, "ssd_table": 0,
                   "argmin_two_pass": 0, "box_energies": 0,
-                  "sad_table_planes": 0, "me_planes": 0}
+                  "sad_table_planes": 0, "me_planes": 0, "intra_screen": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,6 +58,10 @@ _SIGNATURES = {
                            _P],
         "hevc_argmin_two_pass": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
         "hevc_box_energies": [_P, _L, _I, _I, _I, _P, _L, _P],
+    },
+    "intra_screen": {
+        "hevc_intra_screen": [_P, _L, _I, _I, _P, _I, _I, _I, _I, _I, _P,
+                              _P, _P],
     },
 }
 _libs: dict = {}

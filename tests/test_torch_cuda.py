@@ -202,6 +202,54 @@ def test_planes_kernels_match_plain(dev, size, r, ny, nx, pad, dtype):
     assert runtime.launches["me_planes"] == before["me_planes"] + 3
 
 
+def _screen_plane(kind, h, w, bit_depth, seed):
+    """An orig plane for the intra prescreen: random over the full range,
+    flat (every mode ties), or textured with flat patches and a ramp."""
+    rng = np.random.default_rng(seed)
+    top = 1 << bit_depth
+    if kind == "random":
+        return rng.integers(0, top, (h, w)).astype(np.int16)
+    if kind == "flat":
+        return np.full((h, w), top // 3, np.int16)
+    if kind == "max":
+        return np.full((h, w), top - 1, np.int16)
+    y = moving_frames(1, w, h, seed=seed)[0][0].astype(np.int16)
+    y = y << (bit_depth - 8)
+    y[:h // 2, :w // 3] = top // 5
+    y[h // 2:, w // 2:] = (np.arange(w - w // 2) * (top // 256))[None, :]
+    return y
+
+
+@pytest.mark.parametrize("kind", ["random", "flat", "max", "mixed"])
+@pytest.mark.parametrize("bit_depth", [8, 10, 12, 14])
+@pytest.mark.parametrize("h,w", [(40, 72), (136, 200), (240, 416),
+                                 (1080, 1920)])
+def test_intra_screen_matches_plain(dev, h, w, bit_depth, kind):
+    """The prescreen kernel (sizes 4 to 32, one launch each) against its
+    plain version: frames whose 16x16 and 32x32 grids leave rows or columns
+    uncovered (clamped references), 8 to 14 bits, flat planes where many
+    modes tie, and mode costs that tie too."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import intra_screen
+    y = _screen_plane(kind, h, w, bit_depth, seed=h + bit_depth)
+    mid = 1 << (bit_depth - 1)
+    p = np.full((h + 1, w + 1), mid, np.int16)
+    p[1:, 1:] = y
+    plane = torch.from_numpy(p).to(dev)
+    rng = np.random.default_rng(w)
+    for lam in (np.zeros(35), np.full(35, 7),
+                [2, 3] + [6] * 24 + [3] + [6] * 8, rng.integers(0, 90, 35)):
+        lam_tab = torch.tensor(np.asarray(lam, np.int32), device=dev)
+        before = runtime.launches["intra_screen"]
+        got = intra_screen.intra_screen(plane, lam_tab, bit_depth=bit_depth)
+        assert runtime.launches["intra_screen"] == before + 4
+        exp = intra_screen.intra_screen_plain(plane, lam_tab,
+                                              bit_depth=bit_depth)
+        for a, b in zip(got, exp):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            _eq(a, b)
+
+
 def test_encode_on_card_matches_cpu(dev):
     """The same LDP encode (prefetch off, then the CLI flow with the
     one-frame lookahead) on the card and on the CPU: identical bytes."""

@@ -5,14 +5,71 @@ The port is held to the JAX package on the CPU: inputs are made from a
 numpy seed, go through both packages, and every comparison is exact.
 """
 import contextlib
+import fcntl
+import hashlib
 import importlib.util
 import os
+import shutil
+import subprocess
 
 import numpy as np
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LDP_CFG = os.path.join(REPO, "hevc_tpu_torch", "cfg",
-                       "encoder_lowdelay_P_main.cfg")
+CFG_DIR = os.path.join(REPO, "hevc_tpu_torch", "cfg")
+LDP_CFG = os.path.join(CFG_DIR, "encoder_lowdelay_P_main.cfg")
+INTRA_CFG = os.path.join(CFG_DIR, "encoder_intra_main.cfg")
+# hevc_tpu's native sources and the private builds of them the port's
+# tests load (never the library make writes beside the sources)
+REF_NATIVE_DIR = os.path.join(REPO, "hevc_tpu", "entropy", "native")
+REF_NATIVE_BUILDS = os.path.join(REPO, ".test_build", "hevc_tpu_native")
+
+
+def reference_native_lib():
+    """Path of hevc_tpu's native library, built once into a private
+    directory keyed by a hash of its sources and Makefile.
+
+    hevc_tpu's loader runs `make` beside its sources with no lock, so test
+    workers that load it at the same moment on a fresh checkout can read a
+    half-linked library. Here the sources are copied into a directory of
+    their own and built under an exclusive file lock; the finished
+    directory appears by one rename."""
+    names = sorted(f for f in os.listdir(REF_NATIVE_DIR)
+                   if f.endswith((".cpp", ".h")) or f == "Makefile")
+    digest = hashlib.sha256()
+    for name in names:
+        digest.update(name.encode())
+        with open(os.path.join(REF_NATIVE_DIR, name), "rb") as fh:
+            digest.update(fh.read())
+    out = os.path.join(REF_NATIVE_BUILDS, digest.hexdigest()[:16])
+    lib = os.path.join(out, "libhevc_entropy.so")
+    os.makedirs(REF_NATIVE_BUILDS, exist_ok=True)
+    with open(os.path.join(REF_NATIVE_BUILDS, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(lib):
+            tmp = out + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            for name in names:
+                shutil.copy(os.path.join(REF_NATIVE_DIR, name), tmp)
+            subprocess.run(["make", "-s", f"-j{os.cpu_count() or 1}",
+                            "libhevc_entropy.so"], cwd=tmp, check=True)
+            os.replace(tmp, out)
+        # newer than every source, so hevc_tpu's loader never runs make
+        os.utime(lib)
+    return lib
+
+
+@pytest.fixture(autouse=True, scope="module")
+def private_reference_native():
+    """Point hevc_tpu's loader at reference_native_lib() for one test
+    module (import this fixture into every module that runs hevc_tpu's
+    encoder or decoder), and forget the libraries it loaded before."""
+    from hevc_tpu.entropy import cabac
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cabac, "_LIB_PATH", reference_native_lib())
+        mp.setattr(cabac, "_libs", {})
+        yield
 
 
 @contextlib.contextmanager

@@ -26,7 +26,10 @@ Phases, each printed on its own line with its seconds:
      the encoder;
   8. decode every stream of phases 3-7 with the port's own decoder: every
      picture's MD5 SEI must check and the picture counts must match;
-  9. report the card.
+  9. encode 4 LDP and 2 all-intra 1080p frames under torch.profiler: the
+     device time of every kernel and the device's busy share of each
+     encode's wall time (phases 3 and 6 keep their unprofiled frames/s);
+ 10. report the card.
 Phase 2 also holds the intra prescreen kernel to its plain version on
 1080p planes (8-bit, 10-bit, and one with flat regions where many modes
 tie). The input is synthetic moving texture made from --seed with numpy.
@@ -193,6 +196,7 @@ def check_kernels(frames, results):
     acc = {k: {"ms": 0.0, "q_ms": 0.0, "plain_ms": 0.0, "bytes_b": 0.0,
                "ops_b": 0.0, "err": 0, "lib": None} for k in names}
     acc["ssd_table"]["lib"] = 0.0
+    acc["box_energies"]["lib"] = 0.0
     alone_ms = 0.0
     lib = runtime.kernel_lib("me_ssd")
     for size, r in ((32, 64), (16, 16)):
@@ -218,6 +222,19 @@ def check_kernels(frames, results):
         t["box_energies"] = (cuda_ms(fn, 5), cuda_ms(fn, 20, queued=True))
         c["plain_ms"] += cuda_ms(lambda: me_ssd._box_energies(
             (roi.to(torch.int32) - 128) ** 2, size), 5)
+        # yardstick: one average pool over the float32 squares with divisor
+        # 1, exact (every partial sum is an integer below 2^24)
+        sq = ((roi.to(torch.float32) - 128) ** 2)[None, None]
+        fn = lambda: torch.nn.functional.avg_pool2d(  # noqa: E731
+            sq, size, stride=1, divisor_override=1)
+        e_lib = int((fn()[0, 0] - box_k.to(torch.float32)).abs().max())
+        lib_ms = cuda_ms(fn, 5)
+        c["lib"] += lib_ms
+        log(f"  box_energies {grid}: library avg_pool2d {lib_ms:.4f} ms, "
+            f"max_abs_err against the kernel {e_lib}")
+        if e_lib != 0:
+            raise AssertionError("avg_pool2d disagrees with box_energies")
+        del sq
         c["bytes_b"] += roi.numel() + box_k.numel() * 4
         # a square per input sample, two sliding-sum steps per output
         c["ops_b"] += 2.0 * roi.numel() + 4.0 * box_k.numel()
@@ -308,7 +325,7 @@ def check_kernels(frames, results):
         log(f"  {name} (one reference, both grids): kernel_ms {a['ms']:.4f} "
             f"(queued {a['q_ms']:.4f}) plain_ms {a['plain_ms']:.3f} "
             f"bound_ms {bms:.4f} ({by})"
-            + (f" library_ms {a['lib']:.3f}" if a["lib"] else ""))
+            + (f" library_ms {a['lib']:.4f}" if a["lib"] else ""))
     log(f"  ssd_table kernel alone (both grids, box plane precomputed, "
         f"queued): {alone_ms:.4f} ms")
     time_torch_ops(frames, dev)
@@ -524,6 +541,49 @@ def check_planes(orig, refp, lam_fp, results):
             f"bound_ms {bms:.4f} ({by})")
 
 
+def profile_encodes(tmp, seed):
+    """Phase 9: a 4-frame LDP and a 2-picture all-intra 1080p encode under
+    torch.profiler with CUDA activity. Logs, per encode, every device
+    activity by name (device ms in all, count) and the device's busy share
+    of the encode's wall time (the union of the device intervals over the
+    host clock around the encode)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for name, n, cfg in (("prof_ldp", 4, LDP_CFG),
+                         ("prof_intra", 2, INTRA_CFG)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, secs, _, _ = encode(tmp, name, 1920, 1080, n, seed, "cuda",
+                                   cfg=cfg)
+        del streams[name]
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if not dev:
+            log(f"  {name}: torch.profiler recorded no device time "
+                f"({secs:.3f} s wall); busy share not measured")
+            continue
+        by_name = {}
+        for e in dev:
+            short = e.name.replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("(")[0]
+            t = by_name.setdefault(short[:72], [0.0, 0])
+            t[0] += (e.time_range.end - e.time_range.start) / 1e3
+            t[1] += 1
+        for k, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0]):
+            log(f"    {name} device {ms:.4f} ms x{cnt}: {k}")
+        busy, end = 0.0, None
+        for st, en in sorted((e.time_range.start, e.time_range.end)
+                             for e in dev):
+            if end is None or st > end:
+                busy += en - st
+                end = en
+            elif en > end:
+                busy += en - end
+                end = en
+        log(f"  {name}: {n} frames, {secs:.3f} s wall, device busy "
+            f"{busy / 1e3:.3f} ms = {busy / 1e4 / secs:.4f} % of the wall "
+            f"time")
+
+
 def encode(tmp, name, w, h, n, seed, device, chroma=420, recon=False,
            cfg=LDP_CFG):
     """One CLI encode; returns (stream bytes, seconds, CLI stdout, luma
@@ -718,7 +778,10 @@ def main():
                         f"{name}: decoded {pics} of {n} pictures, hash "
                         f"status {dec.hash_status}")
 
-        with Phase("9 card"):
+        with Phase("9 device busy share under torch.profiler"):
+            profile_encodes(tmp, args.seed)
+
+        with Phase("10 card"):
             smi = subprocess.run(
                 ["nvidia-smi", "--query-gpu=name,power.limit",
                  "--format=csv,noheader"], capture_output=True, text=True,

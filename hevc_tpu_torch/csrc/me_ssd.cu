@@ -59,9 +59,25 @@
 // (A 4 x 4 tile reads less, 36/16 + 1, but at 1080p its 135 thread blocks
 // of 16 warps, one an SM, run the 32x32 grid in two waves.)
 
-// box_energies: the box-sum plane of the centred squares, one thread block
-// per 32 x 128 output tile (sliding column sums, then row sums, in shared
-// memory). Bytes-bound: it reads the plane and writes the int32 plane once.
+// box_energies replaces the integral image of `_window_energies`
+// (me_mxu.py:124): the box-sum plane of the centred squares. What bounds
+// it: bytes (it reads the uint8 plane and writes the int32 plane once; at
+// 1080p the 32-grid's 2.4 MB in and 8.7 MB out take 3.4 us at 3.35 TB/s),
+// and, for a simple design, the latency of its dependent row steps. Each
+// warp is independent (no shared memory, no barrier): it owns a strip of
+// 128 input columns, 4 adjacent ones a lane read as one word a row (two
+// aligned word loads and a funnel shift, as the plane may start at any
+// byte), over a band of 16 output rows. It keeps running column sums of
+// the squares in registers (add the entering row, subtract the leaving
+// one; the loads of the size - 1 first rows, then of eight rows at a time,
+// in flight at once, none behind a branch), forms each row's box sums from
+// shuffles (a doubling window sum over size / 4 lanes plus the partial
+// column sums of two lanes) and writes them with 16-byte stores into rows
+// padded to a multiple of 4 int32. No branch separates the eight rows of
+// a whole batch, so their shuffle chains interleave. The size - 1 halo
+// rows are read once a band, the halo columns (size of 128) once a strip.
+// What holds it back: about 11 warps an SM at 1080p, each a chain of
+// dependent load rounds and shuffles, so latency rather than bytes.
 #include <algorithm>
 #include <cstdint>
 
@@ -315,62 +331,134 @@ int launch_ssd_table(const void* roi, long long roi_stride, const void* orig,
 
 // ---------------------------------------------------------- box_energies
 
-constexpr int kBoxRows = 32, kBoxCols = 128;  // output tile of one block
-constexpr int kBoxBatch = 16;                 // byte loads in flight
+constexpr int kBoxWarps = 4;   // adjacent strips of one thread block
+constexpr int kBoxRows = 16;   // output rows of a band
+constexpr int kBoxBatch = 8;   // rows whose loads are in flight at once
+constexpr unsigned kFull = 0xffffffffu;
 
-// box[y, x] = sum of (roi - 128)^2 over the size x size square at (y, x),
-// for y < out_h, x < out_w (roi holds out_h + size - 1 rows). A thread
-// block stages its input tile in shared memory, sums each column down a
-// sliding window of `size` rows, then each output along its row.
-__global__ void __launch_bounds__(kBoxCols)
+// col[k] += sign * (byte k of v - 128)^2
+template <int SIGN>
+__device__ __forceinline__ void add_sq(uint32_t v, int (&col)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int x = static_cast<int>((v >> (8 * k)) & 0xffu) - 128;
+    col[k] += SIGN * x * x;
+  }
+}
+
+// box[y, x] = sum of (roi - 128)^2 over the SIZE x SIZE square at (y, x),
+// for y < out_h, x < out_w (roi holds out_h + SIZE - 1 rows and
+// out_w + SIZE - 1 columns). A warp owns a strip of 128 input columns (4
+// a lane) and 128 - SIZE output columns over a band of kBoxRows rows; it
+// walks the band keeping each lane's 4 column sums of the window's SIZE
+// rows (add the entering row, subtract the leaving one). Per row, the
+// window sum of lanes l .. l + SIZE/4 - 1 comes from log2(SIZE/4) doubling
+// shuffles, and output column 4l + k corrects it by the first k column
+// sums of lane l and of lane l + SIZE/4, and stores 16 bytes (box is
+// 16-byte aligned and box_stride a multiple of 4).
+template <int SIZE>
+__global__ void __launch_bounds__(32 * kBoxWarps)
 box_energies_kernel(const uint8_t* __restrict__ roi, long long roi_stride,
-                    int out_h, int out_w, int size, int* __restrict__ box,
+                    int out_h, int out_w, int* __restrict__ box,
                     long long box_stride) {
-  extern __shared__ int sv[];  // [kBoxRows][cw] column sums, then the tile
-  const int cw = kBoxCols + size - 1;
-  const int y0 = blockIdx.y * kBoxRows, x0 = blockIdx.x * kBoxCols;
-  const int rows = min(kBoxRows, out_h - y0);
-  const int in_w = out_w + size - 1;
-  const int th = rows + size - 1;
-  uint8_t* st = reinterpret_cast<uint8_t*>(sv + kBoxRows * cw);  // [th][cw]
-  for (int k0 = threadIdx.x; k0 < th * cw; k0 += kBoxBatch * blockDim.x) {
-    uint8_t v[kBoxBatch];
+  constexpr int kOut = 128 - SIZE;  // output columns of a strip
+  constexpr int kLanes = SIZE / 4;  // lanes a window spans
+  const int lane = threadIdx.x & 31;
+  const int x0 = (blockIdx.x * kBoxWarps + (threadIdx.x >> 5)) * kOut;
+  if (x0 >= out_w) return;
+  const int y0 = blockIdx.y * kBoxRows;
+  const int y1 = min(y0 + kBoxRows, out_h);
+  const int in_w = out_w + SIZE - 1;
+  const int c = x0 + 4 * lane;
+  const bool out_lane = lane < 32 - kLanes;
+  // A lane reads the word of columns cl .. cl + 3, all inside the row, and
+  // shifts it down by the dd of its columns c .. c + 3 that lie beyond the
+  // row; those bytes read as 128 (a zero square).
+  const int cl = min(c, in_w - 4);
+  const int dd = min(c - cl, 4);
+  const unsigned dsh = 8 * min(dd, 3);
+  const uint32_t keep = dd >= 4 ? 0u : 0xffffffffu >> (8 * dd);
+  const uint32_t fill = 0x80808080u & ~keep;
+  // row y's word: two aligned word loads and a funnel shift, as the row may
+  // start at any byte (the shift is the same for every lane of the warp)
+  auto load = [&](int y) -> uint32_t {
+    const uintptr_t p = reinterpret_cast<uintptr_t>(roi + y * roi_stride + cl);
+    const uint32_t* a =
+        reinterpret_cast<const uint32_t*>(p & ~static_cast<uintptr_t>(3));
+    const unsigned sh = static_cast<unsigned>(p & 3) * 8;
+    const uint32_t w = __funnelshift_r(__ldg(a), __ldg(a + (sh != 0)), sh);
+    return ((w >> dsh) & keep) | fill;
+  };
+  int col[4] = {0, 0, 0, 0};
+  // the window's first SIZE - 1 rows, all loads issued before their sums
+  {
+    uint32_t v[SIZE - 1];
 #pragma unroll
-    for (int u = 0; u < kBoxBatch; ++u) {
-      const int k = k0 + u * blockDim.x;
-      const int y = k / cw, c = k - (k / cw) * cw;
-      v[u] = k < th * cw && x0 + c < in_w
-                 ? roi[(y0 + y) * roi_stride + x0 + c]
-                 : 128;
-    }
+    for (int r = 0; r < SIZE - 1; ++r) v[r] = load(y0 + r);
 #pragma unroll
-    for (int u = 0; u < kBoxBatch; ++u) {
-      const int k = k0 + u * blockDim.x;
-      if (k < th * cw) st[k] = v[u];
+    for (int r = 0; r < SIZE - 1; ++r) add_sq<1>(v[r], col);
+  }
+  // the stores of a lane: 16 bytes, or the columns before out_w one by one
+  const bool vec = out_lane && c + 4 <= out_w;
+  const int nsc = out_lane && !vec ? out_w - c : 0;
+  // one output row from the column sums of its window
+  auto row = [&](int y) {
+    int g = col[0] + col[1] + col[2] + col[3];
+#pragma unroll
+    for (int s = 1; s < kLanes; s <<= 1) g += __shfl_down_sync(kFull, g, s);
+    const int p1 = col[0], p2 = p1 + col[1], p3 = p2 + col[2];
+    const int q1 = __shfl_down_sync(kFull, p1, kLanes);
+    const int q2 = __shfl_down_sync(kFull, p2, kLanes);
+    const int q3 = __shfl_down_sync(kFull, p3, kLanes);
+    const int o[4] = {g, g - p1 + q1, g - p2 + q2, g - p3 + q3};
+    int* dst = box + static_cast<long long>(y) * box_stride + c;
+    if (vec) {
+      *reinterpret_cast<int4*>(dst) = int4{o[0], o[1], o[2], o[3]};
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (k < nsc) dst[k] = o[k];
+    }
+  };
+  for (int y = y0; y < y1; y += kBoxBatch) {
+    if (y + kBoxBatch <= y1) {
+      // a whole batch: no branch between its rows, so their shuffle
+      // chains can interleave
+      uint32_t e[kBoxBatch], l[kBoxBatch];
+#pragma unroll
+      for (int u = 0; u < kBoxBatch; ++u) {
+        e[u] = load(y + u + SIZE - 1);
+        l[u] = load(y + u);
+      }
+#pragma unroll
+      for (int u = 0; u < kBoxBatch; ++u) {
+        add_sq<1>(e[u], col);
+        row(y + u);
+        add_sq<-1>(l[u], col);
+      }
+    } else {
+      for (int yy = y; yy < y1; ++yy) {
+        add_sq<1>(load(yy + SIZE - 1), col);
+        row(yy);
+        add_sq<-1>(load(yy), col);
+      }
     }
   }
-  __syncthreads();
-  for (int c = threadIdx.x; c < cw; c += blockDim.x) {
-    auto sq = [&](int y) {
-      const int v = static_cast<int>(st[y * cw + c]) - 128;
-      return v * v;
-    };
-    int s = 0;
-    for (int i = 0; i < size; ++i) s += sq(i);
-    for (int yy = 0; yy < rows; ++yy) {
-      sv[yy * cw + c] = s;
-      if (yy + 1 < rows) s += sq(yy + size) - sq(yy);
-    }
-  }
-  __syncthreads();
-  const int x = x0 + threadIdx.x;
-  if (x >= out_w) return;
-  for (int yy = 0; yy < rows; ++yy) {
-    const int* v = sv + yy * cw + threadIdx.x;
-    int s = 0;
-    for (int j = 0; j < size; ++j) s += v[j];
-    box[static_cast<long long>(y0 + yy) * box_stride + x] = s;
-  }
+}
+
+template <int SIZE>
+int launch_box_energies(const void* roi, long long roi_stride, int out_h,
+                        int out_w, void* box, long long box_stride,
+                        cudaStream_t stream) {
+  constexpr int kOut = 128 - SIZE;
+  const int strips = (out_w + kOut - 1) / kOut;
+  const dim3 grid((strips + kBoxWarps - 1) / kBoxWarps,
+                  (out_h + kBoxRows - 1) / kBoxRows);
+  if (out_h > 0 && out_w > 0)
+    box_energies_kernel<SIZE><<<grid, 32 * kBoxWarps, 0, stream>>>(
+        static_cast<const uint8_t*>(roi), roi_stride, out_h, out_w,
+        static_cast<int*>(box), box_stride);
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------ argmin_two_pass
@@ -608,22 +696,27 @@ extern "C" int hevc_argmin_two_pass(const void* ssd, const void* bits0,
   return cudaGetLastError();
 }
 
-// box: [out_h, out_w] int32 (row stride box_stride) of the uint8 plane roi
-// ([out_h + size - 1, out_w + size - 1], row stride roi_stride).
+// box: [out_h, out_w] int32 (16-byte aligned, row stride box_stride a
+// multiple of 4) of the uint8 plane
+// roi ([out_h + size - 1, out_w + size - 1], row stride roi_stride, any
+// alignment); size 8, 16 or 32.
 extern "C" int hevc_box_energies(const void* roi, long long roi_stride,
                                  int out_h, int out_w, int size, void* box,
                                  long long box_stride, void* stream) {
-  const int cw = kBoxCols + size - 1;
-  const size_t smem = static_cast<size_t>(kBoxRows) * cw * sizeof(int) +
-                      static_cast<size_t>(kBoxRows + size - 1) * cw;
-  cudaError_t e = allow_smem(box_energies_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((out_w + kBoxCols - 1) / kBoxCols,
-                  (out_h + kBoxRows - 1) / kBoxRows);
-  if (out_h > 0 && out_w > 0)
-    box_energies_kernel<<<grid, kBoxCols, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(roi), roi_stride, out_h, out_w, size,
-        static_cast<int*>(box), box_stride);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (box_stride % 4 != 0 || reinterpret_cast<uintptr_t>(box) % 16 != 0)
+    return cudaErrorInvalidValue;
+  switch (size) {
+    case 8:
+      return launch_box_energies<8>(roi, roi_stride, out_h, out_w, box,
+                                    box_stride, s);
+    case 16:
+      return launch_box_energies<16>(roi, roi_stride, out_h, out_w, box,
+                                     box_stride, s);
+    case 32:
+      return launch_box_energies<32>(roi, roi_stride, out_h, out_w, box,
+                                     box_stride, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

@@ -94,16 +94,21 @@ def _box_energies(p2: torch.Tensor, size: int) -> torch.Tensor:
 
 def box_energies(roi: torch.Tensor, size: int) -> torch.Tensor:
     """Box-sum plane of the centred squares (roi - 128)^2 of a uint8 plane:
-    [H - size + 1, W - size + 1] int32. On the card one kernel launch;
-    its plain version is `_box_energies` of the squares."""
+    [H - size + 1, W - size + 1] int32. On the card one kernel launch
+    (size 8, 16 or 32), whose output rows are strided to a multiple of 4
+    int32 for its 16-byte stores; its plain version is `_box_energies` of
+    the squares."""
     if roi.device.type == "cpu":
         rc = roi.to(torch.int32) - 128
         return _box_energies(rc * rc, size)
     runtime.require(roi, torch.uint8, "box_energies roi", contiguous=False)
-    if roi.stride(1) != 1 or min(roi.shape) < size:
-        raise ValueError("box_energies: bad roi shape or layout")
+    if roi.stride(1) != 1 or min(roi.shape) < size or size not in (8, 16,
+                                                                   32):
+        raise ValueError("box_energies: bad roi shape or layout, or a size "
+                         "other than 8, 16 and 32")
     out_h, out_w = roi.shape[0] - size + 1, roi.shape[1] - size + 1
-    box = torch.empty((out_h, out_w), dtype=torch.int32, device=roi.device)
+    box = torch.empty_strided((out_h, out_w), (-(-out_w // 4) * 4, 1),
+                              dtype=torch.int32, device=roi.device)
     lib = runtime.kernel_lib("me_ssd")
     rc = lib.hevc_box_energies(roi.data_ptr(), roi.stride(0), out_h, out_w,
                                size, box.data_ptr(), box.stride(0),

@@ -46,3 +46,29 @@ def test_box_energies_match_window_energies(size, r, ny, nx, kind):
     got = (box.numpy()[rows][:, cols].reshape(ny, nyx, nx, nyx)
            .transpose(0, 2, 1, 3).reshape(ny * nx, nyx, nyx))
     np.testing.assert_array_equal(got, exp)
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros", "full"])
+@pytest.mark.parametrize("size,h,w", [(8, 8, 8), (16, 47, 301), (32, 200, 133),
+                                      (32, 1216, 2048), (8, 38, 250),
+                                      (16, 41, 129), (32, 79, 260),
+                                      (32, 33, 35), (16, 1104, 1952)])
+def test_box_plane_matches_reference_at_card_shapes(size, h, w, kind):
+    """The whole box plane at the card tests' shapes (no multiple of the
+    kernel's 16-row band or its column strip, a view that starts at an odd
+    column), held to the reference's integral image: its squares are
+    zero-padded to a square plane whose single block window (ny = nx = 1,
+    2r + 1 offsets a side) covers every box position."""
+    big = _plane(kind, h + 5, w + 9, seed=h + w)
+    roi = big[3:3 + h, 7:7 + w]
+    box = me_ssd.box_energies(torch.from_numpy(roi), size).numpy()
+    oh, ow = h - size + 1, w - size + 1
+    assert box.shape == (oh, ow)
+    side = max(oh, ow) | 1
+    r = side // 2
+    p2 = np.zeros((side + size - 1, side + size - 1), np.int32)
+    p2[:h, :w] = (roi.astype(np.int32) - 128) ** 2
+    with no_jax_cache_writes():
+        exp = np.asarray(me_mxu._window_energies(jnp.asarray(p2), size=size,
+                                                 r=r, ny=1, nx=1))[0]
+    np.testing.assert_array_equal(box, exp[:oh, :ow])

@@ -120,11 +120,14 @@ def test_ssd_table_edge_shapes(dev, size, r, kind):
 
 @pytest.mark.parametrize("kind", ["random", "zeros", "full"])
 @pytest.mark.parametrize("size,h,w", [(8, 8, 8), (16, 47, 301), (32, 200, 133),
-                                      (32, 1216, 2048)])
+                                      (32, 1216, 2048), (8, 38, 250),
+                                      (16, 41, 129), (32, 79, 260),
+                                      (32, 33, 35), (16, 1104, 1952)])
 def test_box_energies_match_plain(dev, size, h, w, kind):
     """The window-energy kernel equals the torch integral image, on planes
-    that are no multiple of its 32 x 128 output tile and on a row-strided
-    view."""
+    whose output is no multiple of its 16-row band or its 128 - size
+    column strip (and of 4 columns), on a row-strided view that starts at
+    an odd column, and at the 16x16 grid's 1080p shape."""
     from hevc_tpu_torch import runtime
     from hevc_tpu_torch.ops import me_ssd
     plane, _ = _edge_planes(kind, h + 5, w + 9, seed=h + w)
@@ -223,12 +226,15 @@ def _screen_plane(kind, h, w, bit_depth, seed):
 @pytest.mark.parametrize("kind", ["random", "flat", "max", "mixed"])
 @pytest.mark.parametrize("bit_depth", [8, 10, 12, 14])
 @pytest.mark.parametrize("h,w", [(40, 72), (136, 200), (240, 416),
-                                 (1080, 1920)])
+                                 (1080, 1920), (88, 136), (104, 168),
+                                 (1120, 1952)])
 def test_intra_screen_matches_plain(dev, h, w, bit_depth, kind):
     """The prescreen kernel (sizes 4 to 32, one launch each) against its
     plain version: frames whose 16x16 and 32x32 grids leave rows or columns
-    uncovered (clamped references), 8 to 14 bits, flat planes where many
-    modes tie, and mode costs that tie too."""
+    uncovered (clamped references), whose block counts leave the last
+    thread block of a size partly empty (168x104 at every size, 72x40,
+    136x88 and 1952x1120 at some), 8 to 14 bits, flat planes where many modes tie, and mode costs that tie
+    too."""
     from hevc_tpu_torch import runtime
     from hevc_tpu_torch.ops import intra_screen
     y = _screen_plane(kind, h, w, bit_depth, seed=h + bit_depth)

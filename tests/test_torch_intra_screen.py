@@ -138,3 +138,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             intra_screen.screen_frame(np.zeros((16, 16), np.int16), 8, 1.0)
+
+
+@pytest.mark.parametrize("h,w,kind,bit_depth", [
+    (88, 136, "flat", 8), (88, 136, "full", 14), (88, 136, "texture", 10),
+    (104, 168, "ramp", 12), (104, 168, "full", 8), (104, 168, "texture", 14),
+    (1120, 1952, "texture", 8)])
+def test_screen_frame_partial_thread_blocks(h, w, kind, bit_depth):
+    """The frame sizes of the card tests whose block counts leave the last
+    thread block of the kernel partly empty (168x104 at every block size;
+    136x88 and 1952x1120 at some), held to the reference first, so that the
+    card tests' plain version stands for hevc_tpu there."""
+    y = _plane(kind, h, w, bit_depth, seed=h + bit_depth)
+    with no_jax_cache_writes():
+        exp = jscreen.screen_frame(y, bit_depth, 6.1)
+    got = intra_screen.screen_frame_async(y, bit_depth, 6.1, device="cpu")()
+    assert sorted(got) == sorted(exp) == [2, 3, 4, 5]
+    for log2 in exp:
+        for g, e in zip(got[log2], exp[log2]):
+            np.testing.assert_array_equal(g, e)

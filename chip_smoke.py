@@ -4,20 +4,25 @@
 
 Phases, each printed on its own line with its seconds:
   1. build the CUDA kernel libraries (nvcc, from hevc_tpu_torch/csrc) and
-     the native entropy/CU-engine library (make);
+     the native entropy/CU-engine library (make); count the VABSDIFF4
+     instructions of each SAD kernel in cuobjdump's SASS;
   2. hold every kernel against its plain PyTorch version on the card, at
      the shapes the encoder gives it at 1920x1080 (exact integer
      equality), and time kernel, plain version and library yardstick;
      the planes-in SAD entries (sad_table_from_planes, me_from_planes),
      which no encoder path calls, run here through their entry points
-     with the launch counters reset just before;
+     with the launch counters reset just before; the SAD kernels also on
+     10-bit samples (the 8-bit inputs << 2); the 8-bit bound divides by
+     the published VABSDIFF4 rate, and a probe of it is printed beside;
   3. encode 1920x1080 8-bit low-delay P through the CLI entry point on
      the card, with the launch counters reset just before it: 13 frames,
      the IDR and twelve P frames, so that the GOP's reference deltas
      (-1 -5 -9 -13 ...) bring the reference count from 1 up to 4;
   4. encode 416x240 (13 frames) on the card and on the CPU: the streams
      must match;
-  5. encode 416x240 4:2:2 (the fallback inter path and its SAD kernels);
+  5. encode 416x240 4:2:2 (the fallback inter path and its SAD kernels)
+     on the card and on the CPU, at 8 and at 10 bits: each pair of streams
+     must match;
   6. encode 1920x1080 8-bit all-intra (HM's encoder_intra_main settings)
      through the CLI entry point on the card, with the launch counters
      reset just before it: every picture runs the intra prescreen kernel;
@@ -61,6 +66,10 @@ INTRA_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
 HBM_BPS = 3.35e12
 INT8_TC_OPS = 1979e12
 SCALAR32_OPS = 67e12
+# VABSDIFF4 (PTX vabsdiff4) instructions a clock on one SM of compute
+# capability 9.0, from the CUDA C++ Programming Guide's table of arithmetic
+# instruction throughput; times the SM count and the card's maximum SM clock
+VABSDIFF4_PER_CLK_SM = 64
 PAD = 80
 # frames of the LDP encodes: POC 10 is the first picture whose four
 # reference deltas all land on coded pictures
@@ -132,13 +141,18 @@ def clip_frames(w, h, n, seed, chroma=420):
     return frames
 
 
-def write_clip(path, w, h, n, seed, chroma=420):
-    """Write clip_frames(...) as planar YUV; returns the luma planes."""
+def write_clip(path, w, h, n, seed, chroma=420, bit_depth=8):
+    """Write clip_frames(...) as planar YUV; returns the (8-bit) luma
+    planes. Above 8 bits each sample s becomes s << k | s & (2^k - 1),
+    k = bit_depth - 8, written as 16-bit little-endian."""
     frames = clip_frames(w, h, n, seed, chroma)
+    k = bit_depth - 8
     with open(path, "wb") as fh:
         for planes in frames:
             for p in planes:
-                fh.write(p.tobytes())
+                if k:
+                    p = ((p.astype("<u2") << k) | (p & ((1 << k) - 1)))
+                fh.write(p.astype("<u2" if k else np.uint8).tobytes())
     return [f[0] for f in frames]
 
 
@@ -165,6 +179,34 @@ def cuda_ms(fn, reps, queued=False):
     return t0.elapsed_time(t1) / reps
 
 
+def check_sass():
+    """The 8-bit SAD sweep's packed instruction as compiled: count the
+    VABSDIFF4 (and scalar VABSDIFF) instructions of each sad.cu kernel in
+    cuobjdump's SASS. Fails when cuobjdump is missing or a table kernel
+    has none."""
+    from hevc_tpu_torch import runtime
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise AssertionError("cuobjdump not found: the SASS of libsad.so "
+                             "cannot be checked")
+    sass = subprocess.run([tool, "-sass", os.path.join(
+        runtime.BUILD_DIR, "libsad.so")], capture_output=True, text=True,
+        timeout=120, check=True).stdout
+    for part in sass.split("Function : ")[1:]:
+        fname = part.split(None, 1)[0]
+        short = next((k for k in ("sad_table_kernel", "sad_planes_kernel",
+                                  "me_planes_kernel", "probe")
+                      if k in fname), None)
+        if short is None:
+            continue
+        ops = part.count("VABSDIFF4")
+        log(f"    {short} ({fname[:60]}): {ops} VABSDIFF4, "
+            f"{part.count('VABSDIFF.')} VABSDIFF, {part.count('FADD')} FADD, "
+            f"{part.count(' SHF.')} SHF, {part.count(' LDS')} LDS")
+        if ops == 0:
+            raise AssertionError(f"{fname}: no VABSDIFF4 in its SASS")
+
+
 def bound_ms(nbytes, ops, op_rate):
     tb, to = nbytes / HBM_BPS * 1e3, ops / op_rate * 1e3
     return max(tb, to), ("bytes" if tb >= to else "operations")
@@ -179,7 +221,7 @@ def check_kernels(frames, results):
     """Phase 2: kernels against their plain versions at 1080p shapes."""
     from hevc_tpu_torch import runtime
     from hevc_tpu_torch.encoder.top import hm_pic_lambda
-    from hevc_tpu_torch.ops import me_ssd, sad
+    from hevc_tpu_torch.ops import me_ssd
     dev = torch.device("cuda")
     h, w = frames[0].shape
     orig = torch.from_numpy(frames[1]).to(dev)
@@ -331,66 +373,10 @@ def check_kernels(frames, results):
     time_torch_ops(frames, dev)
     check_intra_screen(frames, results)
 
-    # --- SAD table + fused cost/argmin at the fallback path's 1080p shape
-    size, R = 32, 64
-    pos = [(x0, y0) for y0 in range(0, h - size + 1, size)
-           for x0 in range(0, w - size + 1, size)]
-    n = len(pos)
-    bucket = max(128, 1 << (n - 1).bit_length())
-    blks = torch.zeros((bucket, size, size), dtype=torch.int32, device=dev)
-    areas = torch.zeros((bucket, size + 2 * R, size + 2 * R),
-                        dtype=torch.int32, device=dev)
-    o32, r32 = orig.to(torch.int32), refp.to(torch.int32)
-    for i, (x0, y0) in enumerate(pos):
-        blks[i] = o32[y0:y0 + size, x0:x0 + size]
-        areas[i] = r32[PAD + y0 - R:PAD + y0 + R + size,
-                       PAD + x0 - R:PAD + x0 + R + size]
-    ny = nx = 2 * R + 1
-    sad_k = sad.sad_table(blks, areas)
-    sad_p = sad.sad_table_plain(blks, areas)
-    torch.cuda.synchronize()
-    e = max_abs_err(sad_k, sad_p)
-    log(f"  sad_table N={bucket} {size}x{size} {ny}x{nx}: max_abs_err {e}")
-    if e != 0:
-        raise AssertionError("sad_table disagrees with its plain version")
-    ms = cuda_ms(lambda: sad.sad_table(blks, areas), 3)
-    pms = cuda_ms(lambda: sad.sad_table_plain(blks, areas), 1)
-    nbytes = (blks.numel() + areas.numel() + sad_k.numel()) * 4
-    bms, by = bound_ms(nbytes, 2.0 * bucket * ny * nx * size * size,
-                       SCALAR32_OPS)
-    results["sad_table"] = {
-        "name": "sad_table", "route": "cuda",
-        "source": "hevc_tpu_torch/csrc/sad.cu",
-        "replaces": "hevc_tpu/ops/sad_pallas.py:60", "max_abs_err": e,
-        "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-        "library_ms": None}
-    log(f"  sad_table: kernel_ms {ms:.3f} plain_ms {pms:.3f} "
-        f"bound_ms {bms:.4f} ({by})")
-    mins = torch.full((bucket,), -R, dtype=torch.int32, device=dev)
-    zeros = torch.zeros(bucket, dtype=torch.int32, device=dev)
-    args = (sad_k, mins, mins, zeros, zeros, lam_fp)
-    out_k = sad.cost_argmin(*args)
-    out_p = sad.cost_argmin_plain(*args)
-    torch.cuda.synchronize()
-    e = max(max_abs_err(a, b) for a, b in zip(out_k, out_p))
-    log(f"  sad_cost_argmin: max_abs_err {e}")
-    if e != 0:
-        raise AssertionError("sad_cost_argmin disagrees with its plain "
-                             "version")
-    ms = cuda_ms(lambda: sad.cost_argmin(*args), 5)
-    pms = cuda_ms(lambda: sad.cost_argmin_plain(*args), 3)
-    bms, by = bound_ms(sad_k.numel() * 4 + 8 * bucket * 4,
-                       8.0 * sad_k.numel(), SCALAR32_OPS)
-    results["sad_cost_argmin"] = {
-        "name": "sad_cost_argmin", "route": "cuda",
-        "source": "hevc_tpu_torch/csrc/sad.cu",
-        "replaces": "hevc_tpu/ops/me.py:84", "max_abs_err": e, "ms": ms,
-        "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-        "library_ms": None}
-    log(f"  sad_cost_argmin: kernel_ms {ms:.3f} plain_ms {pms:.3f} "
-        f"bound_ms {bms:.4f} ({by})")
-    del sad_k, sad_p, blks, areas, o32, r32
-    check_planes(orig, refp, lam_fp, results)
+    rate = vabsdiff4_peak(dev)
+    vabsdiff4_probe(dev, rate)
+    blks, areas = check_sad_tables(orig, refp, lam_fp, rate, results)
+    check_planes(orig, refp, lam_fp, rate, blks, areas, results)
     runtime.reset_launches()
 
 
@@ -480,11 +466,185 @@ def check_intra_screen(frames, results):
         f"bound_ms {bms:.4f} ({by}, {ops / 1e9:.2f} G ops)")
 
 
-def check_planes(orig, refp, lam_fp, results):
+def vabsdiff4_peak(dev):
+    """The card's peak VABSDIFF4 rate, instructions a second: the published
+    64 a clock an SM, times the SM count and the maximum SM clock that
+    nvidia-smi reads. The 8-bit path's operations bound is a quarter of its
+    differences over this rate."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    rate = VABSDIFF4_PER_CLK_SM * sms * mhz * 1e6
+    log(f"  VABSDIFF4 peak: {VABSDIFF4_PER_CLK_SM} a clock an SM x {sms} "
+        f"SMs x {mhz:.0f} MHz = {rate / 1e12:.3f} T instructions/s")
+    return rate
+
+
+def vabsdiff4_probe(dev, peak):
+    """A check of the published rate, printed only: the probe kernel of
+    csrc/sad.cu (16 independent accumulations a thread, 16 thread blocks an
+    SM), timed queued."""
+    from hevc_tpu_torch import runtime
+    lib = runtime.kernel_lib("sad")
+    blocks = 16 * torch.cuda.get_device_properties(dev).multi_processor_count
+    iters = 2048
+    out = torch.empty(blocks * 256, dtype=torch.int32, device=dev)
+    stream = runtime.stream_of(out)
+    rcs = []
+    ms = cuda_ms(lambda: rcs.append(lib.hevc_vabsdiff4_probe(
+        out.data_ptr(), blocks, iters, stream)), 5, queued=True)
+    if any(rcs):
+        raise AssertionError(f"vabsdiff4 probe: launch error {max(rcs)}")
+    rate = blocks * 256.0 * iters * 16 / (ms * 1e-3)
+    log(f"  VABSDIFF4 probe: {rate / 1e12:.3f} T instructions/s, "
+        f"{100 * rate / peak:.1f}% of the peak ({ms:.4f} ms a call)")
+
+
+def sad_bound(nbytes, diffs, bit_depth, rate):
+    """Least time of a SAD table: bytes over HBM, or its operations: for
+    8-bit samples a quarter of the differences over the peak VABSDIFF4
+    rate; otherwise 2 operations a difference at the 32-bit peak."""
+    if bit_depth <= 8:
+        tb, to = nbytes / HBM_BPS * 1e3, diffs / 4.0 / rate * 1e3
+        return max(tb, to), ("bytes" if tb >= to else "operations")
+    return bound_ms(nbytes, 2.0 * diffs, SCALAR32_OPS)
+
+
+def time_deep(name, fn, plain, nbytes, diffs, rate):
+    """The 10-bit case of a kernel already checked at 8 bits: held to its
+    plain version, timed host-paced and queued. Returns its numbers."""
+    got, exp = fn(), plain()
+    torch.cuda.synchronize()
+    e = max_abs_err(got, exp)
+    if e != 0:
+        raise AssertionError(f"{name} disagrees with its plain version on "
+                             f"10-bit samples")
+    bms, by = sad_bound(nbytes, diffs, 10, rate)
+    d = {"bit_depth": 10, "max_abs_err": e, "ms": cuda_ms(fn, 3),
+         "queued_ms": cuda_ms(fn, 10, queued=True),
+         "plain_ms": cuda_ms(plain, 1), "bound_ms": bms, "bound_by": by}
+    log(f"  {name} 10-bit: max_abs_err {e} kernel_ms {d['ms']:.4f} (queued "
+        f"{d['queued_ms']:.4f}) plain_ms {d['plain_ms']:.3f} bound_ms "
+        f"{bms:.4f} ({by})")
+    return d
+
+
+def check_sad_tables(orig, refp, lam_fp, rate, results):
+    """sad_table and sad_cost_argmin at the fallback path's 1080p shape
+    (2048 blocks of 32x32 in the bucket, 129x129 offsets), on the 8-bit
+    picture and on the same << 2 (10 bits: the float path), each held to
+    its plain version and timed host-paced and queued. The yardstick is
+    torch.cdist(p=1) over every block (cdist_ms). Returns the int32 blocks
+    and areas."""
+    from hevc_tpu_torch.ops import sad
+    dev = orig.device
+    h, w = orig.shape
+    size, R = 32, 64
+    pos = [(x0, y0) for y0 in range(0, h - size + 1, size)
+           for x0 in range(0, w - size + 1, size)]
+    n = len(pos)
+    bucket = max(128, 1 << (n - 1).bit_length())
+    blks = torch.zeros((bucket, size, size), dtype=torch.int32, device=dev)
+    areas = torch.zeros((bucket, size + 2 * R, size + 2 * R),
+                        dtype=torch.int32, device=dev)
+    o32, r32 = orig.to(torch.int32), refp.to(torch.int32)
+    for i, (x0, y0) in enumerate(pos):
+        blks[i] = o32[y0:y0 + size, x0:x0 + size]
+        areas[i] = r32[PAD + y0 - R:PAD + y0 + R + size,
+                       PAD + x0 - R:PAD + x0 + R + size]
+    ny = nx = 2 * R + 1
+    sad_k = sad.sad_table(blks, areas)
+    sad_p = sad.sad_table_plain(blks, areas)
+    torch.cuda.synchronize()
+    e = max_abs_err(sad_k, sad_p)
+    log(f"  sad_table N={bucket} {size}x{size} {ny}x{nx}: max_abs_err {e}")
+    if e != 0:
+        raise AssertionError("sad_table disagrees with its plain version")
+    del sad_p
+    fn = lambda: sad.sad_table(blks, areas)  # noqa: E731
+    ms, q_ms = cuda_ms(fn, 3), cuda_ms(fn, 10, queued=True)
+    pms = cuda_ms(lambda: sad.sad_table_plain(blks, areas), 1)
+    nbytes = (blks.numel() + areas.numel() + sad_k.numel()) * 4
+    diffs = float(bucket) * ny * nx * size * size
+    bms, by = sad_bound(nbytes, diffs, 8, rate)
+    lib_ms = cdist_ms(blks, areas, bucket, sad_k)
+    b10, a10 = blks << 2, areas << 2
+    deep = time_deep("sad_table", lambda: sad.sad_table(b10, a10),
+                     lambda: sad.sad_table_plain(b10, a10), nbytes, diffs,
+                     rate)
+    del b10, a10
+    results["sad_table"] = {
+        "name": "sad_table", "route": "cuda",
+        "source": "hevc_tpu_torch/csrc/sad.cu",
+        "replaces": "hevc_tpu/ops/sad_pallas.py:60", "max_abs_err": e,
+        "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+        "library_ms": lib_ms, "queued_ms": q_ms, "deep": deep}
+    log(f"  sad_table 8-bit: kernel_ms {ms:.4f} (queued {q_ms:.4f}) "
+        f"plain_ms {pms:.3f} bound_ms {bms:.4f} ({by}) library_ms "
+        f"{lib_ms:.4f} (torch.cdist p=1 over all {bucket} blocks)")
+    mins = torch.full((bucket,), -R, dtype=torch.int32, device=dev)
+    zeros = torch.zeros(bucket, dtype=torch.int32, device=dev)
+    args = (sad_k, mins, mins, zeros, zeros, lam_fp)
+    out_k = sad.cost_argmin(*args)
+    out_p = sad.cost_argmin_plain(*args)
+    torch.cuda.synchronize()
+    e = max(max_abs_err(a, b) for a, b in zip(out_k, out_p))
+    log(f"  sad_cost_argmin: max_abs_err {e}")
+    if e != 0:
+        raise AssertionError("sad_cost_argmin disagrees with its plain "
+                             "version")
+    ms = cuda_ms(lambda: sad.cost_argmin(*args), 5)
+    pms = cuda_ms(lambda: sad.cost_argmin_plain(*args), 3)
+    bms, by = bound_ms(sad_k.numel() * 4 + 8 * bucket * 4,
+                       8.0 * sad_k.numel(), SCALAR32_OPS)
+    results["sad_cost_argmin"] = {
+        "name": "sad_cost_argmin", "route": "cuda",
+        "source": "hevc_tpu_torch/csrc/sad.cu",
+        "replaces": "hevc_tpu/ops/me.py:84", "max_abs_err": e, "ms": ms,
+        "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+        "library_ms": None}
+    log(f"  sad_cost_argmin: kernel_ms {ms:.3f} plain_ms {pms:.3f} "
+        f"bound_ms {bms:.4f} ({by})")
+    return blks, areas
+
+
+def cdist_ms(blks, areas, count, table):
+    """The library yardstick of a SAD table: torch.cdist(x1, x2, p=1) in
+    float32 over the first count blocks, 16 at a time. Each chunk's windows
+    are unfolded before its timed calls (not timed), its result is checked
+    equal to the kernel's table rows, and the measured times are summed."""
+    k, total = 16, 0.0
+    size = blks.shape[-1]
+    for c in range(0, count, k):
+        m = min(k, count - c)
+        x1 = areas[c:c + m].to(torch.float32).unfold(1, size, 1).unfold(
+            2, size, 1).reshape(m, -1, size * size).contiguous()
+        x2 = blks[c:c + m].to(torch.float32).reshape(m, 1, size * size)
+        fn = lambda: torch.cdist(x1, x2, p=1)  # noqa: E731
+        got = fn()[:, :, 0]
+        exp = table[c:c + m].reshape(m, -1).to(torch.float32)
+        if int((got - exp).abs().max()) != 0:
+            raise AssertionError(f"torch.cdist disagrees with the kernel's "
+                                 f"table at blocks {c}..{c + m - 1}")
+        total += cuda_ms(fn, 3)
+        del x1, x2, got
+    return total
+
+
+def check_planes(orig, refp, lam_fp, rate, blks, areas, results):
     """The planes-in SAD entries at the 1080p shape (32x32 blocks, r = 64,
     pad 80: 1980 blocks in a bucket of 2048). No encoder path calls them;
-    this is their path: counters reset, each entry point called once, and
-    the counts read. Then each is held against its plain version."""
+    this is their path: counters reset, each entry point called once on the
+    uint8 planes, and the counts read. Then each is held against its plain
+    version, and again on the planes as int16 << 2 (10 bits). blks and
+    areas are the same blocks and windows as int32 tensors (check_sad_tables
+    cut them from the same planes): sad_table_planes' library yardstick is
+    cdist over its n blocks of them, checked equal to its table."""
     from hevc_tpu_torch import runtime
     from hevc_tpu_torch.ops import me_ssd, sad
     dev = orig.device
@@ -513,32 +673,42 @@ def check_planes(orig, refp, lam_fp, results):
         raise AssertionError("a planes kernel disagrees with its plain "
                              "version")
     del tab_p, idx_p
-    plane_bytes = refp.numel() * refp.element_size() + \
-        orig.numel() * orig.element_size()
-    ops = 2.0 * n * nyx * nyx * size * size  # |a - b| and its sum
-    for name, fn, plain, out_bytes, replaces in (
-            ("sad_table_planes",
-             lambda: sad.sad_table_from_planes(refp, orig, **kw),
-             lambda: sad.sad_table_from_planes_plain(refp, orig, **kw),
-             tab_k.numel() * 4, "hevc_tpu/ops/sad_pallas.py:99"),
+    refp16, orig16 = refp.to(torch.int16) << 2, orig.to(torch.int16) << 2
+    diffs = float(n) * nyx * nyx * size * size
+    for name, call, plain, out_bytes, replaces in (
+            ("sad_table_planes", sad.sad_table_from_planes,
+             sad.sad_table_from_planes_plain, tab_k.numel() * 4,
+             "hevc_tpu/ops/sad_pallas.py:99"),
             ("me_planes",
-             lambda: sad.me_from_planes(refp, orig, bits, lam_fp, **kw),
-             lambda: sad.me_from_planes_plain(refp, orig, bits, lam_fp, **kw),
+             lambda a, b, **k: sad.me_from_planes(a, b, bits, lam_fp, **k),
+             lambda a, b, **k: sad.me_from_planes_plain(a, b, bits, lam_fp,
+                                                        **k),
              idx_k.numel() * 4 + bits.numel() * 4,
              "hevc_tpu/ops/sad_pallas.py:134")):
         if path[name] <= 0:
             raise AssertionError(f"{name} was never launched")
-        ms = cuda_ms(fn, 3)
-        pms = cuda_ms(plain, 1)
-        bms, by = bound_ms(plane_bytes + out_bytes, ops, SCALAR32_OPS)
+        fn = lambda: call(refp, orig, **kw)  # noqa: E731
+        ms, q_ms = cuda_ms(fn, 3), cuda_ms(fn, 10, queued=True)
+        pms = cuda_ms(lambda: plain(refp, orig, **kw), 1)
+        plane_bytes = refp.numel() + orig.numel()
+        bms, by = sad_bound(plane_bytes + out_bytes, diffs, 8, rate)
+        deep = time_deep(
+            name, lambda: call(refp16, orig16, **kw),
+            lambda: plain(refp16, orig16, **kw),
+            2 * plane_bytes + out_bytes, diffs, rate)
+        lib = (cdist_ms(blks, areas, n, tab_k)
+               if name == "sad_table_planes" else None)
         results[name] = {
             "name": name, "route": "cuda",
             "source": "hevc_tpu_torch/csrc/sad.cu", "replaces": replaces,
             "launches": path[name], "max_abs_err": e_tab if name ==
             "sad_table_planes" else e_idx, "ms": ms, "plain_ms": pms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
-        log(f"  {name}: kernel_ms {ms:.3f} plain_ms {pms:.3f} "
-            f"bound_ms {bms:.4f} ({by})")
+            "bound_ms": bms, "bound_by": by, "library_ms": lib,
+            "queued_ms": q_ms, "deep": deep}
+        log(f"  {name} 8-bit: kernel_ms {ms:.4f} (queued {q_ms:.4f}) "
+            f"plain_ms {pms:.3f} bound_ms {bms:.4f} ({by})"
+            + (f" library_ms {lib:.4f} (torch.cdist p=1 over its {n} "
+               f"blocks)" if lib else ""))
 
 
 def profile_encodes(tmp, seed):
@@ -585,17 +755,20 @@ def profile_encodes(tmp, seed):
 
 
 def encode(tmp, name, w, h, n, seed, device, chroma=420, recon=False,
-           cfg=LDP_CFG):
+           cfg=LDP_CFG, bit_depth=8):
     """One CLI encode; returns (stream bytes, seconds, CLI stdout, luma
     planes). Every stream is kept in `streams` for the decode phase."""
     from hevc_tpu_torch.cli.encode import main
     clip = os.path.join(tmp, f"{name}.yuv")
-    frames = write_clip(clip, w, h, n, seed, chroma)
+    frames = write_clip(clip, w, h, n, seed, chroma, bit_depth)
     out = os.path.join(tmp, f"{name}.bin")
     args = ["-c", cfg, "-i", clip, "-wdt", str(w), "-hgt", str(h),
             "-f", str(n), "-b", out]
     if chroma != 420:
         args.append(f"--InputChromaFormat={chroma}")
+    if bit_depth != 8:
+        args += [f"--InputBitDepth={bit_depth}",
+                 f"--InternalBitDepth={bit_depth}"]
     if recon:
         args += ["-o", os.path.join(tmp, f"{name}_rec.yuv")]
     buf = io.StringIO()
@@ -679,6 +852,7 @@ def main():
                     for line in fh:
                         if "registers" in line or "spill" in line:
                             log(f"    {name}: {line.strip()}")
+            check_sass()
             t0 = time.perf_counter()
             cabac.get_lib()
             log(f"  native library (make): {time.perf_counter() - t0:.2f} s")
@@ -718,7 +892,7 @@ def main():
             if s_gpu != s_cpu:
                 raise AssertionError("cuda and cpu streams differ")
 
-        with Phase("5 416x240 4:2:2 fallback inter path on cuda"):
+        with Phase("5 416x240 4:2:2 fallback inter path, cuda vs cpu"):
             runtime.reset_launches()
             s422, t422, _, _ = encode(tmp, "cif422", 416, 240, 3, args.seed,
                                       "cuda", chroma=422)
@@ -729,6 +903,27 @@ def main():
                 if fb_launches[k] <= 0:
                     raise AssertionError(f"{k} was never launched")
                 results[k]["launches"] = fb_launches[k]
+            # the same clip on the CPU, and at 10 bits (the float path of
+            # the SAD kernel) on both: each pair byte-identical
+            for bd, gpu in ((8, s422), (10, None)):
+                tag = "" if bd == 8 else f"_{bd}"
+                if gpu is None:
+                    runtime.reset_launches()
+                    gpu, t_gpu, _, _ = encode(tmp, f"cif422{tag}", 416, 240,
+                                              3, args.seed, "cuda",
+                                              chroma=422, bit_depth=bd)
+                    if runtime.launches["sad_table"] <= 0:
+                        raise AssertionError(f"sad_table was never launched "
+                                             f"at {bd} bits")
+                s_cpu, t_cpu, _, _ = encode(tmp, f"cif422{tag}_cpu", 416,
+                                            240, 3, args.seed, "cpu",
+                                            chroma=422, bit_depth=bd)
+                log(f"  {bd}-bit 4:2:2: cuda {len(gpu)} bytes md5 "
+                    f"{hashlib.md5(gpu).hexdigest()}; cpu {len(s_cpu)} bytes "
+                    f"md5 {hashlib.md5(s_cpu).hexdigest()} {t_cpu:.2f} s")
+                if gpu != s_cpu:
+                    raise AssertionError(f"{bd}-bit 4:2:2 cuda and cpu "
+                                         f"streams differ")
 
         with Phase("6 encode 1920x1080 all-intra on cuda"):
             runtime.reset_launches()

@@ -52,6 +52,7 @@ _SIGNATURES = {
                                   _I, _I, _P],
         "hevc_me_planes": [_P, _L, _P, _L, _I, _P, _I, _P, _I, _I, _I, _I,
                            _I, _I, _P],
+        "hevc_vabsdiff4_probe": [_P, _I, _I, _P],
     },
     "me_ssd": {
         "hevc_ssd_table": [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _I,

@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_helpers import LDP_CFG, moving_frames
+from test_torch_helpers import (LDP_CFG, SAD_KINDS, SAD_SHAPES,
+                                moving_frames, planes_case,
+                                sad_range_case)
 
 pytestmark = pytest.mark.cuda
 PAD = 80
@@ -52,6 +54,27 @@ def test_sad_kernels_match_plain(dev, n, h, w, R):
         p = sad.cost_argmin_plain(sads, mins, mins, py, px, 40000)
         for a, b in zip(k, p):
             _eq(a, b)
+
+
+@pytest.mark.parametrize("h,w,ny,nx", SAD_SHAPES + [(32, 32, 129, 129)])
+@pytest.mark.parametrize("kind", SAD_KINDS)
+def test_sad_table_sample_ranges(dev, kind, h, w, ny, nx):
+    """sad_table against its plain version at every sample range its
+    kernel branches on: 8-bit samples with 0 and 255 at the extremes
+    (8-bit path), 10-14 bits (float path where h * w * max < 2^24, int32
+    path past it), 16 bits, negative values up to +-2^28 whose sums wrap in
+    int32, and one launch whose blocks mix every range; non-square blocks
+    and searches (ny, nx of 3, 5, 7), 64 x 64 blocks at R = 1 .. 4, the
+    fallback path's 32 x 32 at R = 64, an odd N."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import sad
+    blks, areas = sad_range_case(kind, 7, h, w, ny, nx, seed=h * ny + nx)
+    b = torch.from_numpy(blks).to(dev)
+    a = torch.from_numpy(areas).to(dev)
+    before = runtime.launches["sad_table"]
+    got = sad.sad_table(b, a)
+    assert runtime.launches["sad_table"] == before + 1
+    _eq(got, sad.sad_table_plain(b, a))
 
 
 @pytest.mark.parametrize("kind", ["moving", "flat"])
@@ -197,6 +220,38 @@ def test_planes_kernels_match_plain(dev, size, r, ny, nx, pad, dtype):
         before["sad_table_planes"] + 1
     _eq(got, sad.sad_table_from_planes_plain(ref, orig, **kw))
     nyx = 2 * r + 1
+    bits = torch.from_numpy(rng.integers(0, 40, (nyx, nyx)).astype(
+        np.int32)).to(dev)
+    for lam_fp in (0, 90000, -(1 << 30)):
+        k = sad.me_from_planes(ref, orig, bits, lam_fp, **kw)
+        _eq(k, sad.me_from_planes_plain(ref, orig, bits, lam_fp, **kw))
+    assert runtime.launches["me_planes"] == before["me_planes"] + 3
+
+
+@pytest.mark.parametrize("case", ["u8_view", "i16_10bit", "i16_15bit"])
+@pytest.mark.parametrize("size,r,ny,nx,pad", [(8, 2, 3, 4, 4),
+                                              (16, 4, 2, 5, 6),
+                                              (32, 16, 3, 3, 16),
+                                              (32, 64, 2, 3, 80)])
+def test_planes_kernels_views_and_deep_samples(dev, size, r, ny, nx, pad,
+                                               case):
+    """The planes entries on uint8 planes that are views starting at an odd
+    column with an odd row stride (windows at any byte offset), and on
+    int16 planes of 10 bits (the float path) and 15 bits (float at 8 x 8
+    and 16 x 16, int32 at 32 x 32), against their plain versions."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import sad
+    ref, orig = planes_case(case, size, r, ny, nx, pad, seed=size + r + nx)
+    ref, orig = (torch.from_numpy(big).to(dev)[y:y + hh, x:x + ww]
+                 for big, (y, x, hh, ww) in (ref, orig))
+    kw = dict(size=size, r=r, ny=ny, nx=nx, pad=pad)
+    before = dict(runtime.launches)
+    got = sad.sad_table_from_planes(ref, orig, **kw)
+    assert runtime.launches["sad_table_planes"] == \
+        before["sad_table_planes"] + 1
+    _eq(got, sad.sad_table_from_planes_plain(ref, orig, **kw))
+    nyx = 2 * r + 1
+    rng = np.random.default_rng(size * r)
     bits = torch.from_numpy(rng.integers(0, 40, (nyx, nyx)).astype(
         np.int32)).to(dev)
     for lam_fp in (0, 90000, -(1 << 30)):

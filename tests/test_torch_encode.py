@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from hevc_tpu.encoder.top import EncoderTop as JaxEncoderTop
@@ -91,6 +92,28 @@ def test_422_inter_fallback_stream_identical(monkeypatch):
     got = _port_encode(cfg, frames)
     assert got == ref
     assert len(calls) == 2        # one search per P frame
+
+
+def test_422_10bit_inter_fallback_stream_identical(monkeypatch):
+    """10-bit 4:2:2 inter (the fallback encoder's full search on samples
+    above 255, the SAD kernel's float path on a card) gives the same
+    stream in both packages."""
+    calls = []
+    real = inter_frame.full_search_batch_kernel
+
+    def spy(*a, **k):
+        calls.append((a[0].shape, int(a[0].max()), int(a[1].max())))
+        return real(*a, **k)
+    monkeypatch.setattr(inter_frame, "full_search_batch_kernel", spy)
+    frames = [[(p.astype(np.int16) << 2) | (p & 3) for p in f]
+              for f in moving_frames(3, 64, 64, chroma=422, seed=6)]
+    cfg = _ref_cfg(64, 64, 3, chroma=422)
+    cfg.input_bit_depth = cfg.internal_bit_depth = 10
+    ref = _jax_encode(cfg, frames)
+    got = _port_encode(cfg, frames)
+    assert len(got) > 0 and got == ref
+    assert len(calls) == 2        # one search per P frame
+    assert all(max(b, a) > 255 for _, b, a in calls)
 
 
 def test_reference_encode_unchanged_after_port_encode():

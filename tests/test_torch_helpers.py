@@ -109,6 +109,63 @@ def moving_frames(n, w, h, chroma=420, seed=5):
     return out
 
 
+# Sample ranges the SAD-table kernel branches on: [0, 255] takes its 8-bit
+# path, 10-14 bits its float path at 32 x 32 (h * w * max < 2^24), 16 bits
+# at 32 x 32 and anything negative its int32 path; "wrap" sums overflow
+# int32. "mixed" gives every block of one launch another range.
+SAD_RANGES = {"8bit": (0, 255), "10bit": (0, 1023), "12bit": (0, 4095),
+              "14bit": (0, 16383), "16bit": (0, 65535),
+              "wrap": (-(1 << 28), 1 << 28)}
+SAD_KINDS = list(SAD_RANGES) + ["mixed"]
+# (h, w, ny, nx): non-square blocks and searches, 64 x 64 at R = 1 .. 4
+SAD_SHAPES = [(16, 16, 5, 5), (8, 16, 3, 7), (16, 8, 7, 3), (32, 32, 7, 5),
+              (64, 64, 3, 3), (64, 64, 5, 5), (64, 64, 7, 7), (64, 64, 9, 9)]
+
+
+def sad_range_case(kind, n, h, w, ny, nx, seed):
+    """blks [n, h, w] and areas [n, h+ny-1, w+nx-1] int32 in one of
+    SAD_RANGES: block 0 is the range's top against an area of its bottom
+    (the largest SAD it allows), every other block random with the
+    range's two ends at its first and last samples."""
+    rng = np.random.default_rng(seed)
+    names = list(SAD_RANGES)
+    blks = np.empty((n, h, w), np.int32)
+    areas = np.empty((n, h + ny - 1, w + nx - 1), np.int32)
+    for k in range(n):
+        lo, hi = SAD_RANGES[names[k % len(names)] if kind == "mixed"
+                            else kind]
+        if k == 0:
+            blks[k], areas[k] = hi, lo
+            continue
+        for a in (blks[k], areas[k]):
+            a[...] = rng.integers(lo, hi + 1, a.shape)
+            a.flat[0], a.flat[-1] = lo, hi
+    return blks, areas
+
+
+def planes_case(case, size, r, ny, nx, pad, seed):
+    """ref_padded and orig for the planes-in SAD entries, each as a larger
+    array and the (row, column, height, width) of the view into it:
+    "u8_view" uint8 views that start at an odd column and have an odd row
+    stride (every window starts at another byte offset); "i16_10bit" and
+    "i16_15bit" whole int16 planes of 10 and 15-bit samples."""
+    h, w = ny * size + 3, nx * size + 5
+    rng = np.random.default_rng(seed)
+    top = {"u8_view": 256, "i16_10bit": 1 << 10, "i16_15bit": 1 << 15}[case]
+    dtype = np.uint8 if case == "u8_view" else np.int16
+    out = []
+    for (hh, ww), (y, x) in (((h + 2 * pad, w + 2 * pad), (1, 3)),
+                             ((h, w), (2, 1))):
+        if case != "u8_view":
+            y = x = 0
+            shape = (hh, ww)
+        else:
+            shape = (hh + y + 1, (ww + x + 2) | 1)   # odd row stride
+        big = rng.integers(0, top, shape).astype(dtype)
+        out.append((big, (y, x, hh, ww)))
+    return out
+
+
 def textured_frames(n, w, h, seed=1, chroma=420):
     """chip_smoke.py's content: noisy texture panning under a moving
     textured square (more residual per block than moving_frames)."""

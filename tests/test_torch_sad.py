@@ -8,7 +8,8 @@ import torch
 from hevc_tpu.ops import me as jme
 from hevc_tpu.ops.sad_pallas import sad_table as jax_sad_table
 from hevc_tpu_torch.ops import me, sad
-from test_torch_helpers import no_jax_cache_writes
+from test_torch_helpers import (SAD_KINDS, SAD_SHAPES, no_jax_cache_writes,
+                                sad_range_case)
 
 
 @pytest.mark.parametrize("n,h,w,R,seed", [
@@ -25,6 +26,35 @@ def test_sad_table_matches_pallas_interpret(n, h, w, R, seed):
                                        nx=2 * R + 1, interpret=True))
     got = sad.sad_table(torch.from_numpy(blks), torch.from_numpy(areas))
     assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), exp)
+
+
+@pytest.mark.parametrize("h,w,ny,nx", SAD_SHAPES)
+@pytest.mark.parametrize("kind", SAD_KINDS)
+def test_sad_table_ranges_match_pallas_interpret(kind, h, w, ny, nx):
+    """The plain version, which the card tests hold the kernel to, against
+    the Pallas kernel at every sample range the kernel branches on (8-bit,
+    10-16 bits, negative values whose sums wrap in int32, one launch mixing
+    them all), on non-square blocks and searches and 64 x 64 blocks at
+    R = 1 .. 4, with an odd N."""
+    n = 7
+    blks, areas = sad_range_case(kind, n, h, w, ny, nx, seed=h * ny + nx)
+    with no_jax_cache_writes():
+        exp = np.asarray(jax_sad_table(blks, areas, h=h, w=w, ny=ny, nx=nx,
+                                       interpret=True))
+    got = sad.sad_table(torch.from_numpy(blks), torch.from_numpy(areas))
+    assert got.dtype == torch.int32 and got.shape == (n, ny, nx)
+    np.testing.assert_array_equal(got.numpy(), exp)
+
+
+def test_sad_table_fallback_shape_mixed_ranges():
+    """The fallback path's 1080p block shape (32 x 32, 129 x 129 offsets)
+    with one block of every sample range, against the Pallas kernel."""
+    blks, areas = sad_range_case("mixed", 7, 32, 32, 129, 129, seed=1)
+    with no_jax_cache_writes():
+        exp = np.asarray(jax_sad_table(blks, areas, h=32, w=32, ny=129,
+                                       nx=129, interpret=True))
+    got = sad.sad_table(torch.from_numpy(blks), torch.from_numpy(areas))
     np.testing.assert_array_equal(got.numpy(), exp)
 
 

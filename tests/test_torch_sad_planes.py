@@ -16,7 +16,7 @@ import torch
 
 from hevc_tpu.ops import sad_pallas
 from hevc_tpu_torch.ops import me_ssd, sad
-from test_torch_helpers import no_jax_cache_writes
+from test_torch_helpers import no_jax_cache_writes, planes_case
 
 # (size, r, ny, nx, pad, kind): n = ny*nx < 128 everywhere (bucket padding)
 CASES = [
@@ -120,6 +120,32 @@ def test_planes_sample_types_and_strided_views():
     np.testing.assert_array_equal(
         got.numpy(), sad.sad_table_from_planes(
             torch.from_numpy(ref), torch.from_numpy(orig), **kw).numpy())
+
+
+@pytest.mark.parametrize("case", ["u8_view", "i16_10bit", "i16_15bit"])
+@pytest.mark.parametrize("size,r,ny,nx,pad", [(8, 2, 3, 4, 4),
+                                              (16, 4, 2, 5, 6)])
+def test_planes_views_and_deep_samples_match_jax(size, r, ny, nx, pad,
+                                                 case):
+    """The plain versions, which the card test of the same cases holds the
+    kernels to, against the JAX functions: uint8 views at odd columns with
+    odd row strides, int16 planes of 10 and 15 bits. (The card test's
+    32 x 32 cases take minutes in interpret mode and run there only.)"""
+    ref, orig = ((big[y:y + hh, x:x + ww], torch.from_numpy(big)[
+        y:y + hh, x:x + ww]) for big, (y, x, hh, ww) in planes_case(
+            case, size, r, ny, nx, pad, seed=size + r + nx))
+    kw = dict(size=size, r=r, ny=ny, nx=nx, pad=pad)
+    got = sad.sad_table_from_planes(ref[1], orig[1], **kw)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _jax_table(ref[0], orig[0], **kw))
+    nyx = 2 * r + 1
+    bits = np.random.default_rng(size * r).integers(
+        0, 40, (nyx, nyx)).astype(np.int32)
+    for lam_fp in (0, 90000, -(1 << 30)):
+        got = sad.me_from_planes(ref[1], orig[1], torch.from_numpy(bits),
+                                 lam_fp, **kw)
+        np.testing.assert_array_equal(
+            got.numpy(), _jax_me(ref[0], orig[0], bits, lam_fp, **kw))
 
 
 def test_planes_reject_windows_outside_the_plane():

@@ -5,24 +5,30 @@
 Phases, each printed on its own line with its seconds:
   1. build the CUDA kernel libraries (nvcc, from hevc_tpu_torch/csrc) and
      the native entropy/CU-engine library (make); count the VABSDIFF4
-     instructions of each SAD kernel in cuobjdump's SASS;
+     instructions of each SAD kernel (the fused full search among them) in
+     cuobjdump's SASS;
   2. hold every kernel against its plain PyTorch version on the card, at
      the shapes the encoder gives it at 1920x1080 (exact integer
      equality), and time kernel, plain version and library yardstick;
-     the planes-in SAD entries (sad_table_from_planes, me_from_planes),
-     which no encoder path calls, run here through their entry points
-     with the launch counters reset just before; the SAD kernels also on
-     10-bit samples (the 8-bit inputs << 2); the 8-bit bound divides by
-     the published VABSDIFF4 rate, and a probe of it is printed beside;
+     the SAD entries that no encoder path calls (sad_table, cost_argmin,
+     sad_table_from_planes, me_from_planes) run here through their entry
+     points with the launch counters reset just before; the fused full
+     search of the fallback path is held to its plain version on all four
+     outputs with per-block predictors; the SAD kernels also on 10-bit
+     samples (the 8-bit inputs << 2); the 8-bit bound divides by the
+     published VABSDIFF4 rate, and a probe of it is printed beside;
   3. encode 1920x1080 8-bit low-delay P through the CLI entry point on
      the card, with the launch counters reset just before it: 13 frames,
      the IDR and twelve P frames, so that the GOP's reference deltas
      (-1 -5 -9 -13 ...) bring the reference count from 1 up to 4;
   4. encode 416x240 (13 frames) on the card and on the CPU: the streams
      must match;
-  5. encode 416x240 4:2:2 (the fallback inter path and its SAD kernels)
-     on the card and on the CPU, at 8 and at 10 bits: each pair of streams
-     must match;
+  5. encode 416x240 4:2:2 (the fallback inter path, one launch of the
+     fused full-search kernel a P picture) on the card and on the CPU, at
+     8 and at 10 bits: each pair of streams must match; then 1920x1080
+     8-bit 4:2:2, the IDR and one P picture, on the card under
+     torch.profiler: its wall time, the full search's device time and its
+     launches;
   6. encode 1920x1080 8-bit all-intra (HM's encoder_intra_main settings)
      through the CLI entry point on the card, with the launch counters
      reset just before it: every picture runs the intra prescreen kernel;
@@ -37,7 +43,8 @@ Phases, each printed on its own line with its seconds:
  10. report the card.
 Phase 2 also holds the intra prescreen kernel to its plain version on
 1080p planes (8-bit, 10-bit, and one with flat regions where many modes
-tie). The input is synthetic moving texture made from --seed with numpy.
+tie), and times the reference padding beside F.pad(mode="replicate").
+The input is synthetic moving texture made from --seed with numpy.
 The last two lines are a JSON object with every kernel's numbers and the
 result {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 """
@@ -195,7 +202,8 @@ def check_sass():
     for part in sass.split("Function : ")[1:]:
         fname = part.split(None, 1)[0]
         short = next((k for k in ("sad_table_kernel", "sad_planes_kernel",
-                                  "me_planes_kernel", "probe")
+                                  "me_planes_kernel", "full_search_kernel",
+                                  "probe")
                       if k in fname), None)
         if short is None:
             continue
@@ -217,7 +225,7 @@ def max_abs_err(a, b):
 
 
 # ---------------------------------------------------------------- phases
-def check_kernels(frames, results):
+def check_kernels(frames, seed, results):
     """Phase 2: kernels against their plain versions at 1080p shapes."""
     from hevc_tpu_torch import runtime
     from hevc_tpu_torch.encoder.top import hm_pic_lambda
@@ -375,7 +383,7 @@ def check_kernels(frames, results):
 
     rate = vabsdiff4_peak(dev)
     vabsdiff4_probe(dev, rate)
-    blks, areas = check_sad_tables(orig, refp, lam_fp, rate, results)
+    blks, areas = check_sad_tables(orig, refp, lam_fp, rate, seed, results)
     check_planes(orig, refp, lam_fp, rate, blks, areas, results)
     runtime.reset_launches()
 
@@ -383,7 +391,9 @@ def check_kernels(frames, results):
 def time_torch_ops(frames, dev):
     """Time of the main path's device work that is torch tensor ops, not a
     kernel of this package (the reference ran it as XLA programs): the
-    reference padding (_pad_edge_dev). Logged only."""
+    reference padding (_pad_edge_dev), and as its yardstick one
+    F.pad(mode="replicate") call on the uint8 plane, where torch accepts
+    uint8 there (its result must equal _pad_edge_dev's). Logged only."""
     from hevc_tpu_torch.ops import me_ssd
     h, w = frames[0].shape
     plane = torch.from_numpy(frames[0]).to(dev)
@@ -392,6 +402,19 @@ def time_torch_ops(frames, dev):
     bms, by = bound_ms(nbytes, 0, SCALAR32_OPS)
     log(f"  _pad_edge_dev {w}x{h} pad {PAD}: {ms:.4f} ms, bound "
         f"{bms:.4f} ms ({by})")
+    fn = lambda: torch.nn.functional.pad(  # noqa: E731
+        plane[None, None], (PAD,) * 4, mode="replicate")
+    try:
+        got = fn()
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"  F.pad(mode='replicate') does not accept a uint8 plane on "
+            f"the card: {str(e).splitlines()[0]}")
+        return
+    if not torch.equal(got[0, 0], me_ssd._pad_edge_dev(plane, PAD)):
+        raise AssertionError("F.pad(mode='replicate') disagrees with "
+                             "_pad_edge_dev")
+    log(f"  library F.pad(mode='replicate') on the uint8 plane: "
+        f"{cuda_ms(fn, 20):.4f} ms, equal to _pad_edge_dev's")
 
 
 def check_intra_screen(frames, results):
@@ -515,16 +538,36 @@ def sad_bound(nbytes, diffs, bit_depth, rate):
     return bound_ms(nbytes, 2.0 * diffs, SCALAR32_OPS)
 
 
-def time_deep(name, fn, plain, nbytes, diffs, rate):
+def search_bound(nbytes, diffs, positions, bit_depth, rate):
+    """Least time of the fused full search: its bytes over HBM (blocks and
+    areas read, four [N] vectors read and four written; no table), or its
+    operations: the sweep's, counted as sad_bound counts them, plus 8
+    integer operations a position for the cost and the running minimum at
+    the 32-bit peak."""
+    tb = nbytes / HBM_BPS * 1e3
+    sweep = (diffs / 4.0 / rate if bit_depth <= 8
+             else 2.0 * diffs / SCALAR32_OPS)
+    to = (sweep + 8.0 * positions / SCALAR32_OPS) * 1e3
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def outputs_err(got, exp):
+    """max_abs_err over a kernel's output tensor or tuple of tensors."""
+    if isinstance(got, torch.Tensor):
+        got, exp = (got,), (exp,)
+    return max(max_abs_err(a, b) for a, b in zip(got, exp))
+
+
+def time_deep(name, fn, plain, bound):
     """The 10-bit case of a kernel already checked at 8 bits: held to its
     plain version, timed host-paced and queued. Returns its numbers."""
     got, exp = fn(), plain()
     torch.cuda.synchronize()
-    e = max_abs_err(got, exp)
+    e = outputs_err(got, exp)
     if e != 0:
         raise AssertionError(f"{name} disagrees with its plain version on "
                              f"10-bit samples")
-    bms, by = sad_bound(nbytes, diffs, 10, rate)
+    bms, by = bound
     d = {"bit_depth": 10, "max_abs_err": e, "ms": cuda_ms(fn, 3),
          "queued_ms": cuda_ms(fn, 10, queued=True),
          "plain_ms": cuda_ms(plain, 1), "bound_ms": bms, "bound_by": by}
@@ -534,14 +577,19 @@ def time_deep(name, fn, plain, nbytes, diffs, rate):
     return d
 
 
-def check_sad_tables(orig, refp, lam_fp, rate, results):
-    """sad_table and sad_cost_argmin at the fallback path's 1080p shape
-    (2048 blocks of 32x32 in the bucket, 129x129 offsets), on the 8-bit
-    picture and on the same << 2 (10 bits: the float path), each held to
-    its plain version and timed host-paced and queued. The yardstick is
-    torch.cdist(p=1) over every block (cdist_ms). Returns the int32 blocks
-    and areas."""
-    from hevc_tpu_torch.ops import sad
+def check_sad_tables(orig, refp, lam_fp, rate, seed, results):
+    """The fallback path's full search at its 1080p shape (2048 blocks of
+    32x32 in the bucket, 129x129 offsets, mv_min -64, per-block predictors
+    made from --seed): the fused kernel of the path, and the table route
+    that no encoder path calls any more (sad_table, then sad_cost_argmin
+    over its table), whose entry points run first, once each, with the
+    launch counters reset just before (their path). On the 8-bit picture
+    and on the same << 2 (10 bits: the float path), each kernel is held to
+    its plain version (the fused one on all four outputs) and timed
+    host-paced and queued. sad_table's yardstick is torch.cdist(p=1) over
+    every block (cdist_ms). Returns the int32 blocks and areas."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me, sad
     dev = orig.device
     h, w = orig.shape
     size, R = 32, 64
@@ -558,7 +606,22 @@ def check_sad_tables(orig, refp, lam_fp, rate, results):
         areas[i] = r32[PAD + y0 - R:PAD + y0 + R + size,
                        PAD + x0 - R:PAD + x0 + R + size]
     ny = nx = 2 * R + 1
+    rng = np.random.default_rng(seed)
+    mins = torch.full((bucket,), -R, dtype=torch.int32, device=dev)
+    vecs = (mins, mins) + tuple(
+        torch.from_numpy(rng.integers(-64, 65, bucket).astype(np.int32)).to(
+            dev) for _ in range(2))
+    runtime.reset_launches()
     sad_k = sad.sad_table(blks, areas)
+    ca_k = sad.cost_argmin(sad_k, *vecs, lam_fp)
+    torch.cuda.synchronize()
+    path = dict(runtime.launches)
+    runtime.reset_launches()
+    log(f"  table route entry points (sad_table, cost_argmin): launches "
+        f"{path}")
+    for k in ("sad_table", "sad_cost_argmin"):
+        if path[k] <= 0:
+            raise AssertionError(f"{k} was never launched")
     sad_p = sad.sad_table_plain(blks, areas)
     torch.cuda.synchronize()
     e = max_abs_err(sad_k, sad_p)
@@ -575,41 +638,74 @@ def check_sad_tables(orig, refp, lam_fp, rate, results):
     lib_ms = cdist_ms(blks, areas, bucket, sad_k)
     b10, a10 = blks << 2, areas << 2
     deep = time_deep("sad_table", lambda: sad.sad_table(b10, a10),
-                     lambda: sad.sad_table_plain(b10, a10), nbytes, diffs,
-                     rate)
-    del b10, a10
+                     lambda: sad.sad_table_plain(b10, a10),
+                     sad_bound(nbytes, diffs, 10, rate))
     results["sad_table"] = {
         "name": "sad_table", "route": "cuda",
         "source": "hevc_tpu_torch/csrc/sad.cu",
-        "replaces": "hevc_tpu/ops/sad_pallas.py:60", "max_abs_err": e,
-        "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+        "replaces": "hevc_tpu/ops/sad_pallas.py:60",
+        "launches": path["sad_table"], "max_abs_err": e, "ms": ms,
+        "plain_ms": pms, "bound_ms": bms, "bound_by": by,
         "library_ms": lib_ms, "queued_ms": q_ms, "deep": deep}
     log(f"  sad_table 8-bit: kernel_ms {ms:.4f} (queued {q_ms:.4f}) "
         f"plain_ms {pms:.3f} bound_ms {bms:.4f} ({by}) library_ms "
         f"{lib_ms:.4f} (torch.cdist p=1 over all {bucket} blocks)")
-    mins = torch.full((bucket,), -R, dtype=torch.int32, device=dev)
-    zeros = torch.zeros(bucket, dtype=torch.int32, device=dev)
-    args = (sad_k, mins, mins, zeros, zeros, lam_fp)
-    out_k = sad.cost_argmin(*args)
-    out_p = sad.cost_argmin_plain(*args)
+
+    ca_p = sad.cost_argmin_plain(sad_k, *vecs, lam_fp)
     torch.cuda.synchronize()
-    e = max(max_abs_err(a, b) for a, b in zip(out_k, out_p))
+    e = outputs_err(ca_k, ca_p)
     log(f"  sad_cost_argmin: max_abs_err {e}")
     if e != 0:
         raise AssertionError("sad_cost_argmin disagrees with its plain "
                              "version")
-    ms = cuda_ms(lambda: sad.cost_argmin(*args), 5)
-    pms = cuda_ms(lambda: sad.cost_argmin_plain(*args), 3)
+    fn = lambda: sad.cost_argmin(sad_k, *vecs, lam_fp)  # noqa: E731
+    ms, q_ms = cuda_ms(fn, 5), cuda_ms(fn, 20, queued=True)
+    pms = cuda_ms(lambda: sad.cost_argmin_plain(sad_k, *vecs, lam_fp), 3)
     bms, by = bound_ms(sad_k.numel() * 4 + 8 * bucket * 4,
                        8.0 * sad_k.numel(), SCALAR32_OPS)
     results["sad_cost_argmin"] = {
         "name": "sad_cost_argmin", "route": "cuda",
         "source": "hevc_tpu_torch/csrc/sad.cu",
+        "replaces": "hevc_tpu/ops/me.py:95", "launches":
+        path["sad_cost_argmin"], "max_abs_err": e, "ms": ms,
+        "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+        "library_ms": None, "queued_ms": q_ms}
+    log(f"  sad_cost_argmin: kernel_ms {ms:.4f} (queued {q_ms:.4f}) "
+        f"plain_ms {pms:.3f} bound_ms {bms:.4f} ({by})")
+    del sad_k
+
+    fs_k = sad.full_search_batch_kernel(blks, areas, *vecs, lam_fp)
+    fs_p = me.full_search_batch(blks, areas, *vecs, lam_fp)
+    torch.cuda.synchronize()
+    e = outputs_err(fs_k, fs_p)
+    log(f"  full_search (mv_y, mv_x, cost, sad): max_abs_err {e}; equal "
+        f"to the table route's: {outputs_err(fs_k, ca_k) == 0}")
+    if e != 0 or outputs_err(fs_k, ca_k) != 0:
+        raise AssertionError("full_search disagrees with its plain version "
+                             "or the table route")
+    del fs_p
+    fn = lambda: sad.full_search_batch_kernel(  # noqa: E731
+        blks, areas, *vecs, lam_fp)
+    ms, q_ms = cuda_ms(fn, 3), cuda_ms(fn, 10, queued=True)
+    pms = cuda_ms(lambda: me.full_search_batch(blks, areas, *vecs, lam_fp),
+                  1)
+    positions = float(bucket) * ny * nx
+    fbytes = (blks.numel() + areas.numel() + 8 * bucket) * 4
+    bms, by = search_bound(fbytes, diffs, positions, 8, rate)
+    deep = time_deep(
+        "full_search",
+        lambda: sad.full_search_batch_kernel(b10, a10, *vecs, lam_fp),
+        lambda: me.full_search_batch(b10, a10, *vecs, lam_fp),
+        search_bound(fbytes, diffs, positions, 10, rate))
+    del b10, a10
+    results["full_search"] = {
+        "name": "full_search", "route": "cuda",
+        "source": "hevc_tpu_torch/csrc/sad.cu",
         "replaces": "hevc_tpu/ops/me.py:84", "max_abs_err": e, "ms": ms,
         "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-        "library_ms": None}
-    log(f"  sad_cost_argmin: kernel_ms {ms:.3f} plain_ms {pms:.3f} "
-        f"bound_ms {bms:.4f} ({by})")
+        "library_ms": None, "queued_ms": q_ms, "deep": deep}
+    log(f"  full_search 8-bit: kernel_ms {ms:.4f} (queued {q_ms:.4f}) "
+        f"plain_ms {pms:.3f} bound_ms {bms:.4f} ({by})")
     return blks, areas
 
 
@@ -695,7 +791,7 @@ def check_planes(orig, refp, lam_fp, rate, blks, areas, results):
         deep = time_deep(
             name, lambda: call(refp16, orig16, **kw),
             lambda: plain(refp16, orig16, **kw),
-            2 * plane_bytes + out_bytes, diffs, rate)
+            sad_bound(2 * plane_bytes + out_bytes, diffs, 10, rate))
         lib = (cdist_ms(blks, areas, n, tab_k)
                if name == "sad_table_planes" else None)
         results[name] = {
@@ -752,6 +848,44 @@ def profile_encodes(tmp, seed):
         log(f"  {name}: {n} frames, {secs:.3f} s wall, device busy "
             f"{busy / 1e3:.3f} ms = {busy / 1e4 / secs:.4f} % of the wall "
             f"time")
+
+
+def check_fallback_launches(launches, p_pictures):
+    """The fallback inter path runs one fused full search a P picture and
+    no launch of the table route (sad_table, sad_cost_argmin)."""
+    if launches["full_search"] != p_pictures:
+        raise AssertionError(f"full_search launched {launches['full_search']}"
+                             f" times for {p_pictures} P pictures")
+    for k in ("sad_table", "sad_cost_argmin"):
+        if launches[k] != 0:
+            raise AssertionError(f"{k} launched on the fallback path")
+
+
+def encode_hd422(tmp, seed):
+    """The fallback inter path at 1920x1080 8-bit 4:2:2: the IDR and one P
+    picture on the card under torch.profiler (as phase 9 runs it). Logs
+    the wall time, the full search's device time and its launches; phase
+    8 decodes the stream."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from hevc_tpu_torch import runtime
+    runtime.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stream, secs, _, _ = encode(tmp, "hd422", 1920, 1080, 2, seed, "cuda",
+                                    chroma=422)
+    launches = dict(runtime.launches)
+    check_fallback_launches(launches, 1)
+    fs = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA
+          and "full_search_kernel" in e.name]
+    dev_ms = (f"{sum(fs) / 1e3:.4f} ms device in {len(fs)} kernel(s)"
+              if fs else "device time not measured (torch.profiler "
+              "recorded no full_search_kernel)")
+    log(f"  1920x1080 4:2:2, 2 pictures: {len(stream)} bytes md5 "
+        f"{hashlib.md5(stream).hexdigest()}, {secs:.2f} s wall (under the "
+        f"profiler); full search {dev_ms}; launches['full_search'] "
+        f"{launches['full_search']}")
 
 
 def encode(tmp, name, w, h, n, seed, device, chroma=420, recon=False,
@@ -860,7 +994,7 @@ def main():
         with Phase("2 kernels vs plain at 1080p shapes"):
             frames = write_clip(os.path.join(tmp, "k.yuv"), 1920, 1080, 2,
                                 args.seed)
-            check_kernels(frames, results)
+            check_kernels(frames, args.seed, results)
             torch.cuda.empty_cache()
 
         with Phase("3 encode 1920x1080 LDP-P on cuda"):
@@ -892,19 +1026,18 @@ def main():
             if s_gpu != s_cpu:
                 raise AssertionError("cuda and cpu streams differ")
 
-        with Phase("5 416x240 4:2:2 fallback inter path, cuda vs cpu"):
+        with Phase("5 4:2:2 fallback inter path: 416x240 cuda vs cpu, "
+                   "1920x1080 on cuda"):
             runtime.reset_launches()
             s422, t422, _, _ = encode(tmp, "cif422", 416, 240, 3, args.seed,
                                       "cuda", chroma=422)
             fb_launches = dict(runtime.launches)
             log(f"  {len(s422)} bytes md5 {hashlib.md5(s422).hexdigest()} "
                 f"{t422:.2f} s; launches: {fb_launches}")
-            for k in ("sad_table", "sad_cost_argmin"):
-                if fb_launches[k] <= 0:
-                    raise AssertionError(f"{k} was never launched")
-                results[k]["launches"] = fb_launches[k]
+            check_fallback_launches(fb_launches, 2)
+            results["full_search"]["launches"] = fb_launches["full_search"]
             # the same clip on the CPU, and at 10 bits (the float path of
-            # the SAD kernel) on both: each pair byte-identical
+            # the SAD sweep) on both: each pair byte-identical
             for bd, gpu in ((8, s422), (10, None)):
                 tag = "" if bd == 8 else f"_{bd}"
                 if gpu is None:
@@ -912,9 +1045,7 @@ def main():
                     gpu, t_gpu, _, _ = encode(tmp, f"cif422{tag}", 416, 240,
                                               3, args.seed, "cuda",
                                               chroma=422, bit_depth=bd)
-                    if runtime.launches["sad_table"] <= 0:
-                        raise AssertionError(f"sad_table was never launched "
-                                             f"at {bd} bits")
+                    check_fallback_launches(runtime.launches, 2)
                 s_cpu, t_cpu, _, _ = encode(tmp, f"cif422{tag}_cpu", 416,
                                             240, 3, args.seed, "cpu",
                                             chroma=422, bit_depth=bd)
@@ -924,6 +1055,7 @@ def main():
                 if gpu != s_cpu:
                     raise AssertionError(f"{bd}-bit 4:2:2 cuda and cpu "
                                          f"streams differ")
+            encode_hd422(tmp, args.seed)
 
         with Phase("6 encode 1920x1080 all-intra on cuda"):
             runtime.reset_launches()
@@ -989,8 +1121,8 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
 
     order = ["ssd_table", "argmin_two_pass", "box_energies", "sad_table",
-             "sad_cost_argmin", "sad_table_planes", "me_planes",
-             "intra_screen"]
+             "sad_cost_argmin", "full_search", "sad_table_planes",
+             "me_planes", "intra_screen"]
     kernels = [results[k] for k in order]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -14,9 +14,11 @@
 // Rows of the power-of-two bucket past ny * nx are a zero block against a
 // zero window: SAD 0. me_planes fuses the sweep with cost = sad +
 // ((lam_fp * bits) >> 16) (int32 wrap) and the block-wide first-minimum
-// argmin, writing one index per block and no table. sad_cost_argmin
-// replaces the XLA cost + argmin epilogue of hevc_tpu/ops/me.py
-// `full_search_batch_pallas`.
+// argmin, writing one index per block and no table. full_search replaces
+// hevc_tpu/ops/me.py `full_search_batch_pallas` (the Pallas table and its
+// XLA cost + argmin epilogue) the same way: one launch, the sweep's emit
+// folding the cost and the argmin, the four [N] results and no table.
+// sad_cost_argmin is that epilogue alone, over a table already written.
 //
 // What bounds the sweep: instruction issue, not bytes. At the fallback
 // path's 1080p shape (N = 2048 blocks of 32 x 32, 129 x 129 offsets) the
@@ -59,15 +61,29 @@
 // are aligned for it); only when the vote rejects it is the area read a
 // second time (mostly from L2) into the float or int32 layout. The dynamic
 // shared memory covers the widest layout the launch may need (the float
-// one, 111 KB at 32 x 32, R = 64: two thread blocks of 384 threads an SM);
-// uint8 planes take the 8-bit path at compile time and need only 28 KB.
+// one, 111 KB at 32 x 32, R = 64: two thread blocks of 384 threads an SM,
+// full_search's 1 KB of rates after it included); uint8 planes take the
+// 8-bit path at compile time and need only 28 KB.
 // uint8 windows may start at any byte: each word is two aligned word loads
 // and a funnel shift, never reaching past the plane.
 //
-// sad_cost_argmin: cost = sad + (lam_fp * bits) >> 16 over the table with
-// bits = mv_bits(4*mv_y - pred_qy) + mv_bits(4*mv_x - pred_qx), then the
-// first minimum in row-major (dy, dx) order per block (reference compareSAD
-// strict '<'). It reads the table once: bytes-bound, small next to the SAD.
+// The rate: bits = mv_bits(4 (mv_min_y + dy) - pred_qy) +
+// mv_bits(4 (mv_min_x + dx) - pred_qx) is separable, so a thread block
+// stages the ny + nx terms once in shared memory and a position's cost is
+// two shared loads, an add, a multiply, a shift and an add; its first
+// minimum in row-major (dy, dx) order (reference compareSAD strict '<') is
+// a running minimum a thread and one block reduction. The thread whose own
+// minimum wins writes the results, the SAD from its registers.
+//
+// full_search: the table kernel's work (0.52 ms of VABSDIFF4 at 8 bits at
+// 1080p) plus about 8 integer operations a position (0.004 ms at 67 T/s);
+// it writes no 136 MB table and reads none back.
+//
+// sad_cost_argmin: bytes-bound, one read of the [N, ny, nx] table (136 MB
+// at 1080p: 0.041 ms at 3.35 TB/s). Each thread keeps four 16-byte loads
+// in flight (a scalar head and tail cover a block's table, which starts at
+// n ny nx ints and so is 16-byte aligned only when that is a multiple of
+// 4) and walks its positions by a stepped (dy, dx), without a division.
 #include <cstdint>
 #include <type_traits>
 
@@ -75,7 +91,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;       // sad_cost_argmin
+constexpr int kThreads = 256;       // sad_cost_argmin, the probe
 constexpr int kSweepThreads = 384;  // the table kernels: 3 x 384 = 1152
                                     // slots for the 1089 tiles at R = 64
 // largest exact float32 integer sum bound: h * w * max sample < 2^24
@@ -189,7 +205,7 @@ struct Geom {
 // Dynamic shared memory of a table kernel: the widest layout it may take
 // (`wide`: the samples' range is known only after staging), or the 8-bit
 // one alone.
-inline size_t sweep_smem(const Geom& g, bool wide) {
+__host__ __device__ inline size_t sweep_smem(const Geom& g, bool wide) {
   if (!g.packable()) return g.bytes_wide();
   const size_t b8 = g.bytes8();
   if (!wide) return b8;
@@ -546,6 +562,83 @@ me_planes_kernel(const T* __restrict__ ref, long long ref_stride,
   if (threadIdx.x == 0) idx[n] = bi;
 }
 
+// ---- cost + first-minimum argmin ----------------------------------------
+
+// The rate bits of every row and column offset of search block n:
+// rates[dy] = mv_bits(4 (mv_min_y + dy) - pred_qy) for dy < ny, then
+// rates[ny + dx] likewise in x; int32 wrap, as XLA computes them.
+__device__ __forceinline__ void stage_rates(int ny, int nx, int my, int mx,
+                                            int py, int px, int* rates) {
+  for (int k = threadIdx.x; k < ny + nx; k += blockDim.x) {
+    const bool row = k < ny;
+    const unsigned m = row ? my : mx, q = row ? py : px;
+    const unsigned o = row ? k : k - ny;
+    rates[k] = mv_bits(static_cast<int>((m + o) * 4u - q));
+  }
+}
+
+// A thread's running first minimum of the cost over the positions it
+// visits, with the SAD there.
+struct BestCost {
+  int cost = 0x7fffffff, idx = 0x7fffffff, sad = 0;
+  __device__ __forceinline__ void take(int c, int p, int s) {
+    if (c < cost || (c == cost && p < idx)) {
+      cost = c;
+      idx = p;
+      sad = s;
+    }
+  }
+};
+
+// The block's first minimum; the thread that holds it writes the four
+// results of search block n. Every thread of the block calls this.
+__device__ __forceinline__ void write_winner(
+    const BestCost& b, int* scratch, int n, int nx, int my, int mx,
+    int* __restrict__ mv_y, int* __restrict__ mv_x, int* __restrict__ cost,
+    int* __restrict__ sad) {
+  int v = b.cost, i = b.idx;
+  block_argmin(v, i, scratch);
+  if (i == b.idx) {  // positions are unique to a thread: exactly one
+    const int dy = i / nx;
+    mv_y[n] = add_wrap(my, dy);
+    mv_x[n] = add_wrap(mx, i - dy * nx);
+    cost[n] = v;
+    sad[n] = b.sad;
+  }
+}
+
+__global__ void __launch_bounds__(kSweepThreads, 2)
+full_search_kernel(const int* __restrict__ blks, const int* __restrict__ areas,
+                   const int* __restrict__ mv_min_y,
+                   const int* __restrict__ mv_min_x,
+                   const int* __restrict__ pred_qy,
+                   const int* __restrict__ pred_qx, int lam_fp, int h, int w,
+                   int ny, int nx, int* __restrict__ mv_y,
+                   int* __restrict__ mv_x, int* __restrict__ cost,
+                   int* __restrict__ sad) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int scratch[64];
+  const Geom g(h, w, ny, nx);
+  const int n = blockIdx.x;
+  const Rows<int> area{
+      areas + static_cast<long long>(n) * g.ah_in * g.aw, g.aw};
+  const Rows<int> blk{blks + static_cast<long long>(n) * h * w, w};
+  const int my = mv_min_y[n], mx = mv_min_x[n];
+  // past every sweep layout; sad_block's first barrier orders these
+  // stores before the sweep reads them
+  int* rates = reinterpret_cast<int*>(smem + sweep_smem(g, true));
+  stage_rates(ny, nx, my, mx, pred_qy[n], pred_qx[n], rates);
+  BestCost b;
+  sad_block(g, area, blk, smem, [&](int dy, int dx, int s) {
+    b.take(add_wrap(s, mul_wrap(lam_fp, rates[dy] + rates[ny + dx]) >> 16),
+           dy * nx + dx, s);
+  });
+  write_winner(b, scratch, n, nx, my, mx, mv_y, mv_x, cost, sad);
+}
+
+// 16-byte loads a thread keeps in flight in sad_cost_argmin
+constexpr int kCostLoads = 4;
+
 __global__ void __launch_bounds__(kThreads)
 sad_cost_argmin_kernel(const int* __restrict__ sads,
                        const int* __restrict__ mv_min_y,
@@ -554,26 +647,70 @@ sad_cost_argmin_kernel(const int* __restrict__ sads,
                        const int* __restrict__ pred_qx, int lam_fp, int ny,
                        int nx, int* __restrict__ mv_y, int* __restrict__ mv_x,
                        int* __restrict__ cost_out, int* __restrict__ sad_out) {
+  extern __shared__ int rates[];  // [ny + nx]
   __shared__ int scratch[64];
   const int n = blockIdx.x;
   const int npos = ny * nx;
   const int* s = sads + static_cast<long long>(n) * npos;
   const int my = mv_min_y[n], mx = mv_min_x[n];
-  const int py = pred_qy[n], px = pred_qx[n];
-  int best = 0x7fffffff, bi = 0x7fffffff;
-  for (int p = threadIdx.x; p < npos; p += blockDim.x) {
-    const int dy = p / nx, dx = p - (p / nx) * nx;
-    const int bits =
-        mv_bits(4 * (my + dy) - py) + mv_bits(4 * (mx + dx) - px);
-    argmin_take(best, bi, s[p] + (mul_wrap(lam_fp, bits) >> 16), p);
+  stage_rates(ny, nx, my, mx, pred_qy[n], pred_qx[n], rates);
+  __syncthreads();
+  BestCost b;
+  auto take = [&](int p, int dy, int dx, int sad) {
+    b.take(add_wrap(sad, mul_wrap(lam_fp, rates[dy] + rates[ny + dx]) >> 16),
+           p, sad);
+  };
+  // positions before the table's first 16-byte boundary, and after its
+  // last: at most three each, one thread a position
+  const int head =
+      min(npos,
+          static_cast<int>((16 - (reinterpret_cast<uintptr_t>(s) & 15)) & 15)
+              >> 2);
+  const int nvec = (npos - head) >> 2;
+  const int tail = head + 4 * nvec;
+  const int t = threadIdx.x;
+  const int pe = t < 4 ? t : tail + t - 4;
+  if (t < 4 ? t < head : pe < npos) {
+    const int dy = pe / nx;
+    take(pe, dy, pe - dy * nx, s[pe]);
   }
-  block_argmin(best, bi, scratch);
-  if (threadIdx.x == 0) {
-    mv_y[n] = my + bi / nx;
-    mv_x[n] = mx + bi % nx;
-    cost_out[n] = best;
-    sad_out[n] = s[bi];
+  // the body: vector k holds positions head + 4k .. + 3; a thread takes
+  // k = t, t + B, ... (B threads), kCostLoads of them loaded at once
+  const int4* v = reinterpret_cast<const int4*>(s + head);
+  const int step = 4 * blockDim.x;  // positions between a thread's vectors
+  const int sy = step / nx, sx = step - sy * nx;
+  int p = head + 4 * t;
+  int dy = p / nx, dx = p - dy * nx;
+  for (int k = t; k < nvec; k += kCostLoads * blockDim.x) {
+    int4 q[kCostLoads];
+#pragma unroll
+    for (int u = 0; u < kCostLoads; ++u)
+      q[u] = k + u * blockDim.x < nvec ? __ldg(v + k + u * blockDim.x)
+                                       : int4{0, 0, 0, 0};
+#pragma unroll
+    for (int u = 0; u < kCostLoads; ++u) {
+      if (k + u * blockDim.x < nvec) {
+        const int e[4] = {q[u].x, q[u].y, q[u].z, q[u].w};
+        int y = dy, x = dx;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          take(p + j, y, x, e[j]);
+          if (++x == nx) {
+            x = 0;
+            ++y;
+          }
+        }
+      }
+      p += step;
+      dx += sx;
+      dy += sy;
+      if (dx >= nx) {
+        dx -= nx;
+        ++dy;
+      }
+    }
   }
+  write_winner(b, scratch, n, nx, my, mx, mv_y, mv_x, cost_out, sad_out);
 }
 
 // The rate probe of the 8-bit path's instruction: 16 independent
@@ -621,14 +758,41 @@ extern "C" int hevc_sad_cost_argmin(const void* sads, const void* mv_min_y,
                                     const void* pred_qx, int lam_fp, int n,
                                     int ny, int nx, void* mv_y, void* mv_x,
                                     void* cost, void* sad, void* stream) {
+  const size_t smem = (static_cast<size_t>(ny) + nx) * sizeof(int);
+  cudaError_t e = allow_smem(sad_cost_argmin_kernel, smem);
+  if (e != cudaSuccess) return e;
   if (n > 0)
-    sad_cost_argmin_kernel<<<n, kThreads, 0,
+    sad_cost_argmin_kernel<<<n, kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(sads), static_cast<const int*>(mv_min_y),
         static_cast<const int*>(mv_min_x), static_cast<const int*>(pred_qy),
         static_cast<const int*>(pred_qx), lam_fp, ny, nx,
         static_cast<int*>(mv_y), static_cast<int*>(mv_x),
         static_cast<int*>(cost), static_cast<int*>(sad));
+  return cudaGetLastError();
+}
+
+// blks [n, h, w] and areas [n, h+ny-1, w+nx-1] int32; mv_min_y/x and
+// pred_qy/qx [n] int32; outputs mv_y, mv_x, cost, sad [n] int32.
+extern "C" int hevc_full_search(const void* blks, const void* areas,
+                                const void* mv_min_y, const void* mv_min_x,
+                                const void* pred_qy, const void* pred_qx,
+                                int lam_fp, int n, int h, int w, int ny,
+                                int nx, void* mv_y, void* mv_x, void* cost,
+                                void* sad, void* stream) {
+  const size_t smem = sweep_smem(Geom(h, w, ny, nx), true) +
+                      (static_cast<size_t>(ny) + nx) * sizeof(int);
+  cudaError_t e = allow_smem(full_search_kernel, smem);
+  if (e != cudaSuccess) return e;
+  if (n > 0)
+    full_search_kernel<<<n, kSweepThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(blks), static_cast<const int*>(areas),
+        static_cast<const int*>(mv_min_y), static_cast<const int*>(mv_min_x),
+        static_cast<const int*>(pred_qy), static_cast<const int*>(pred_qx),
+        lam_fp, h, w, ny, nx, static_cast<int*>(mv_y),
+        static_cast<int*>(mv_x), static_cast<int*>(cost),
+        static_cast<int*>(sad));
   return cudaGetLastError();
 }
 

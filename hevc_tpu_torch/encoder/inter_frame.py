@@ -107,8 +107,9 @@ class PFrameEncoder(IntraFrameEncoder):
         """One device search over every full-size CU of the frame
         (zero-centred windows, like the reference GPU path's CTU-anchored
         window reuse — the signalled MVD is rated against the real AMVP
-        predictor afterwards): the SAD-table kernel plus its fused
-        lambda*mv-bits argmin on a card, their plain versions on the CPU."""
+        predictor afterwards): one launch of the fused full-search kernel
+        (SAD, lambda*mv-bits cost and argmin) on a card, its plain version
+        on the CPU."""
         size = self.ctu >> self.cu_depth_target
         R = self.search_range
         pos = [(x0, y0)

@@ -2,8 +2,9 @@
 
 Counterpart of hevc_tpu/ops/sad_pallas.py (the Pallas TPU kernel
 ``_sad_kernel`` / ``sad_table``, and its planes-in variants
-``sad_table_from_planes`` / ``me_from_planes``) and of the fused cost +
-argmin of hevc_tpu/ops/me.py ``full_search_batch_pallas``. The kernels are
+``sad_table_from_planes`` / ``me_from_planes``) and of hevc_tpu/ops/me.py
+``full_search_batch_pallas`` (the table and its cost + argmin epilogue, one
+fused kernel here; ``cost_argmin`` is the epilogue alone). The kernels are
 in ``csrc/sad.cu``; the note there says what bounds them.
 
 A wrapper runs its plain version only for tensors on the CPU; for CUDA
@@ -14,7 +15,28 @@ from __future__ import annotations
 import torch
 
 from .. import runtime
-from .me import mv_bits
+from .me import full_search_batch, mv_bits
+
+
+def _search_shape(blks, areas, name):
+    """(n, h, w, ny, nx) of blocks [N, h, w] and their search areas
+    [N, h+ny-1, w+nx-1], both int32 on the card; raises otherwise."""
+    runtime.require(blks, torch.int32, f"{name} blks")
+    runtime.require(areas, torch.int32, f"{name} areas")
+    n, h, w = blks.shape
+    if (areas.dim() != 3 or areas.shape[0] != n or areas.shape[1] < h
+            or areas.shape[2] < w):
+        raise ValueError(f"{name}: areas must be [N, h+ny-1, w+nx-1]")
+    return n, h, w, areas.shape[1] - h + 1, areas.shape[2] - w + 1
+
+
+def _search_vectors(n, tensors, name):
+    """Check the [N] int32 per-block vectors of a search on the card."""
+    for t, what in zip(tensors, ("mv_min_y", "mv_min_x", "pred_qy",
+                                 "pred_qx")):
+        runtime.require(t, torch.int32, f"{name} {what}")
+        if t.shape != (n,):
+            raise ValueError(f"{name}: {what} must be [N]")
 
 
 def sad_table_plain(blks: torch.Tensor, areas: torch.Tensor) -> torch.Tensor:
@@ -37,13 +59,7 @@ def sad_table(blks: torch.Tensor, areas: torch.Tensor) -> torch.Tensor:
     search areas [N, h+ny-1, w+nx-1] (sad_pallas.sad_table)."""
     if blks.device.type == "cpu":
         return sad_table_plain(blks, areas)
-    n, h, w = blks.shape
-    if areas.dim() != 3 or areas.shape[0] != n:
-        raise ValueError("sad_table: areas must be [N, h+ny-1, w+nx-1]")
-    ny = areas.shape[1] - h + 1
-    nx = areas.shape[2] - w + 1
-    runtime.require(blks, torch.int32, "sad_table blks")
-    runtime.require(areas, torch.int32, "sad_table areas")
+    n, h, w, ny, nx = _search_shape(blks, areas, "sad_table")
     out = torch.empty((n, ny, nx), dtype=torch.int32, device=blks.device)
     lib = runtime.kernel_lib("sad")
     rc = lib.hevc_sad_table(blks.data_ptr(), areas.data_ptr(),
@@ -80,20 +96,16 @@ def cost_argmin(sads, mv_min_y, mv_min_x, pred_qy, pred_qx, lam_fp: int):
     if sads.device.type == "cpu":
         return cost_argmin_plain(sads, mv_min_y, mv_min_x, pred_qy, pred_qx,
                                  lam_fp)
-    n, ny, nx = sads.shape
     runtime.require(sads, torch.int32, "cost_argmin sads")
-    for t, name in ((mv_min_y, "mv_min_y"), (mv_min_x, "mv_min_x"),
-                    (pred_qy, "pred_qy"), (pred_qx, "pred_qx")):
-        runtime.require(t, torch.int32, f"cost_argmin {name}")
-        if t.shape != (n,):
-            raise ValueError(f"cost_argmin: {name} must be [N]")
+    n, ny, nx = sads.shape
+    vecs = (mv_min_y, mv_min_x, pred_qy, pred_qx)
+    _search_vectors(n, vecs, "cost_argmin")
     outs = [torch.empty(n, dtype=torch.int32, device=sads.device)
             for _ in range(4)]
     lib = runtime.kernel_lib("sad")
     rc = lib.hevc_sad_cost_argmin(
-        sads.data_ptr(), mv_min_y.data_ptr(), mv_min_x.data_ptr(),
-        pred_qy.data_ptr(), pred_qx.data_ptr(), int(lam_fp), n, ny, nx,
-        *[o.data_ptr() for o in outs], runtime.stream_of(sads))
+        sads.data_ptr(), *[t.data_ptr() for t in vecs], _lam32(lam_fp), n,
+        ny, nx, *[o.data_ptr() for o in outs], runtime.stream_of(sads))
     runtime.check(lib, rc, "sad_cost_argmin")
     return tuple(outs)
 
@@ -101,10 +113,25 @@ def cost_argmin(sads, mv_min_y, mv_min_x, pred_qy, pred_qx, lam_fp: int):
 def full_search_batch_kernel(blks, areas, mv_min_y, mv_min_x, pred_qy,
                              pred_qx, lam_fp: int):
     """The fallback inter path's full search (me.full_search_batch_pallas):
-    SAD tables, then cost = sad + (lam_fp * mv_bits) >> 16 and the first
-    row-major minimum. Returns (mv_y, mv_x, cost, sad), each [N] int32."""
-    return cost_argmin(sad_table(blks, areas), mv_min_y, mv_min_x, pred_qy,
-                       pred_qx, lam_fp)
+    the SAD of every offset, cost = sad + (lam_fp * mv_bits) >> 16 and the
+    first row-major minimum. Returns (mv_y, mv_x, cost, sad), each [N]
+    int32. On the card one launch, which writes no table; on the CPU the
+    plain me.full_search_batch."""
+    if blks.device.type == "cpu":
+        return full_search_batch(blks, areas, mv_min_y, mv_min_x, pred_qy,
+                                 pred_qx, lam_fp)
+    n, h, w, ny, nx = _search_shape(blks, areas, "full_search")
+    vecs = (mv_min_y, mv_min_x, pred_qy, pred_qx)
+    _search_vectors(n, vecs, "full_search")
+    outs = [torch.empty(n, dtype=torch.int32, device=blks.device)
+            for _ in range(4)]
+    lib = runtime.kernel_lib("sad")
+    rc = lib.hevc_full_search(
+        blks.data_ptr(), areas.data_ptr(), *[t.data_ptr() for t in vecs],
+        _lam32(lam_fp), n, h, w, ny, nx, *[o.data_ptr() for o in outs],
+        runtime.stream_of(blks))
+    runtime.check(lib, rc, "full_search")
+    return tuple(outs)
 
 
 # sample dtypes the planes kernels read (me_ssd.me_dtype gives the first

@@ -35,8 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset()
-launches: dict = {"sad_table": 0, "sad_cost_argmin": 0, "ssd_table": 0,
-                  "argmin_two_pass": 0, "box_energies": 0,
+launches: dict = {"sad_table": 0, "sad_cost_argmin": 0, "full_search": 0,
+                  "ssd_table": 0, "argmin_two_pass": 0, "box_energies": 0,
                   "sad_table_planes": 0, "me_planes": 0, "intra_screen": 0}
 
 _P = ctypes.c_void_p
@@ -48,6 +48,8 @@ _SIGNATURES = {
         "hevc_sad_table": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
         "hevc_sad_cost_argmin": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _P, _P, _P, _P, _P],
+        "hevc_full_search": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _P, _P, _P, _P, _P],
         "hevc_sad_table_planes": [_P, _L, _P, _L, _I, _P, _I, _I, _I, _I,
                                   _I, _I, _P],
         "hevc_me_planes": [_P, _L, _P, _L, _I, _P, _I, _P, _I, _I, _I, _I,

@@ -13,8 +13,9 @@ import pytest
 import torch
 
 from test_torch_helpers import (LDP_CFG, SAD_KINDS, SAD_SHAPES,
+                                SEARCH_KINDS, SEARCH_LAMS, cost_table,
                                 moving_frames, planes_case,
-                                sad_range_case)
+                                sad_range_case, search_case)
 
 pytestmark = pytest.mark.cuda
 PAD = 80
@@ -75,6 +76,62 @@ def test_sad_table_sample_ranges(dev, kind, h, w, ny, nx):
     got = sad.sad_table(b, a)
     assert runtime.launches["sad_table"] == before + 1
     _eq(got, sad.sad_table_plain(b, a))
+
+
+@pytest.mark.parametrize("n", [1, 7])
+@pytest.mark.parametrize("h,w,ny,nx", SAD_SHAPES + [(32, 32, 129, 129),
+                                                   (6, 10, 5, 7),
+                                                   (7, 9, 3, 3)])
+@pytest.mark.parametrize("kind", SEARCH_KINDS)
+def test_full_search_kernel_matches_plain(dev, kind, h, w, ny, nx, n):
+    """The fused full search (one launch, no table) against its plain
+    version on all four outputs: every sample range ("mixed" puts the
+    8-bit, float and int32 sweeps in one launch), all-ties blocks, the
+    fallback path's 32 x 32 at R = 64, block sides that are no multiple
+    of 4, N = 1 and odd N with two zero bucket-padding rows, per-block
+    mv_min and predictors that are not zero, lam_fp products that wrap.
+    sad_table and sad_cost_argmin are not launched on this route."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me, sad
+    args = [torch.from_numpy(a).to(dev) for a in search_case(
+        kind, n, h, w, ny, nx, seed=h * ny + nx, padding=2 if n > 1 else 0)]
+    for lam_fp in SEARCH_LAMS:
+        before = dict(runtime.launches)
+        got = sad.full_search_batch_kernel(*args, lam_fp)
+        assert runtime.launches["full_search"] == before["full_search"] + 1
+        for k in ("sad_table", "sad_cost_argmin"):
+            assert runtime.launches[k] == before[k]
+        exp = me.full_search_batch(*args, lam_fp)
+        for a, b in zip(got, exp):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            _eq(a, b)
+
+
+@pytest.mark.parametrize("n,ny,nx", [(1, 1, 1), (1, 129, 129), (7, 5, 5),
+                                     (7, 3, 7), (5, 2, 3), (3, 1, 9),
+                                     (9, 33, 31), (128, 129, 129),
+                                     (6, 4, 4)])
+@pytest.mark.parametrize("table", ["random", "flat", "huge"])
+def test_cost_argmin_kernel_matches_plain(dev, table, n, ny, nx):
+    """sad_cost_argmin against its plain version: ties everywhere
+    ("flat"), SADs near INT32_MAX whose cost wraps ("huge"), N = 1, odd
+    ny * nx (block tables that start at every 16-byte misalignment; the
+    table from its second block on starts off alignment too), tables
+    shorter than one 16-byte load, and the 1080p shape's 129 x 129."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import sad
+    sads = torch.from_numpy(cost_table(table, n, ny, nx, seed=n + ny * nx)
+                            ).to(dev)
+    _, _, *vecs = search_case("8bit", n, 4, 4, ny, nx, seed=ny + nx)
+    vecs = [torch.from_numpy(v).to(dev) for v in vecs]
+    for lam_fp in SEARCH_LAMS:
+        for lo in range(min(n, 2)):    # the whole table, then from block 1
+            t, v = sads[lo:], [x[lo:] for x in vecs]
+            before = runtime.launches["sad_cost_argmin"]
+            got = sad.cost_argmin(t, *v, lam_fp)
+            assert runtime.launches["sad_cost_argmin"] == before + 1
+            for a, b in zip(got, sad.cost_argmin_plain(t, *v, lam_fp)):
+                _eq(a, b)
 
 
 @pytest.mark.parametrize("kind", ["moving", "flat"])

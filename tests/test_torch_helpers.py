@@ -143,6 +143,49 @@ def sad_range_case(kind, n, h, w, ny, nx, seed):
     return blks, areas
 
 
+# the full search's kinds: every SAD_KINDS range, and "flat" (every sample
+# 100: every offset has SAD 0 and ties wherever the rates tie)
+SEARCH_KINDS = SAD_KINDS + ["flat"]
+# lam_fp of the cost tests: none (cost = sad), the encoder's order of
+# magnitude, and one whose product with the rate bits wraps in int32
+SEARCH_LAMS = [0, 40000, (1 << 28) + 4321]
+
+
+def search_case(kind, n, h, w, ny, nx, seed, padding=0):
+    """Inputs of a full search: sad_range_case's n blocks and areas (or
+    "flat" ones) followed by `padding` all-zero rows, as the encoder pads
+    to its bucket, and per-block mv_min_y, mv_min_x, pred_qy, pred_qx
+    [n + padding] int32 that are not zero and differ from block to
+    block."""
+    if kind == "flat":
+        blks = np.full((n, h, w), 100, np.int32)
+        areas = np.full((n, h + ny - 1, w + nx - 1), 100, np.int32)
+    else:
+        blks, areas = sad_range_case(kind, n, h, w, ny, nx, seed)
+    blks = np.concatenate([blks, np.zeros((padding, h, w), np.int32)])
+    areas = np.concatenate([areas, np.zeros((padding,) + areas.shape[1:],
+                                            np.int32)])
+    rng = np.random.default_rng(seed + 1)
+    m = n + padding
+    vecs = [(-(ny // 2) + rng.integers(-3, 4, m)).astype(np.int32),
+            (-(nx // 2) + rng.integers(-3, 4, m)).astype(np.int32)]
+    vecs += [rng.choice(np.r_[-41:0, 1:42], m).astype(np.int32)
+             for _ in range(2)]
+    return (blks, areas, *vecs)
+
+
+def cost_table(kind, n, ny, nx, seed):
+    """An int32 SAD table [n, ny, nx] for the cost + argmin alone: "random"
+    SADs below 2^20, "flat" (all 0: ties everywhere the rates tie), "huge"
+    (within 64 of INT32_MAX, so that adding the rate wraps)."""
+    rng = np.random.default_rng(seed)
+    if kind == "flat":
+        return np.zeros((n, ny, nx), np.int32)
+    lo, hi = {"random": (0, 1 << 20),
+              "huge": ((1 << 31) - 64, (1 << 31) - 1)}[kind]
+    return rng.integers(lo, hi, (n, ny, nx), endpoint=True).astype(np.int32)
+
+
 def planes_case(case, size, r, ny, nx, pad, seed):
     """ref_padded and orig for the planes-in SAD entries, each as a larger
     array and the (row, column, height, width) of the view into it:

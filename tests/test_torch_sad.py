@@ -1,15 +1,27 @@
-"""hevc_tpu_torch.ops.sad (the SAD-table kernel's plain version and the
-fused cost + argmin) against hevc_tpu's Pallas sad_table in interpret mode
-and against the numpy full search. All comparisons are exact."""
+"""hevc_tpu_torch.ops.sad (the SAD-table kernel's plain version, the
+cost + argmin and the full search's CPU route) against hevc_tpu's Pallas
+sad_table in interpret mode, its full searches and the numpy full search.
+All comparisons are exact.
+
+hevc_tpu's full_search_batch_pallas is jitted around a Pallas call that
+runs only in interpret mode on the CPU, so its body runs through
+`.__wrapped__` with `sad_table` patched in the test (to its interpret-mode
+form, or to return a given table); nothing in hevc_tpu changes."""
+import functools
+import unittest.mock as um
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from hevc_tpu.ops import me as jme
+from hevc_tpu.ops import sad_pallas
 from hevc_tpu.ops.sad_pallas import sad_table as jax_sad_table
 from hevc_tpu_torch.ops import me, sad
-from test_torch_helpers import (SAD_KINDS, SAD_SHAPES, no_jax_cache_writes,
-                                sad_range_case)
+from test_torch_helpers import (SAD_KINDS, SAD_SHAPES, SEARCH_KINDS,
+                                SEARCH_LAMS, cost_table, no_jax_cache_writes,
+                                sad_range_case, search_case)
 
 
 @pytest.mark.parametrize("n,h,w,R,seed", [
@@ -91,3 +103,64 @@ def test_mv_bits_exact():
     got = me.mv_bits(torch.from_numpy(v.astype(np.int32))).numpy()
     exp = np.array([jme.mv_bits_np(int(x)) for x in v])
     np.testing.assert_array_equal(got, exp)
+
+
+def _jax_pallas_search(args, lam_fp, table=None):
+    """full_search_batch_pallas's body on the CPU: the Pallas sad_table in
+    interpret mode (or, given `table`, that table) and its XLA cost +
+    argmin epilogue."""
+    blks, areas = args[:2]
+    n, h, w = blks.shape
+    kw = dict(h=h, w=w, ny=areas.shape[1] - h + 1, nx=areas.shape[2] - w + 1)
+    tab = (functools.partial(jax_sad_table, interpret=True) if table is None
+           else lambda *a, **k: jnp.asarray(table))
+    with no_jax_cache_writes(), um.patch.object(sad_pallas, "sad_table",
+                                                tab):
+        out = jme.full_search_batch_pallas.__wrapped__(
+            *map(jnp.asarray, args), jnp.asarray(np.int32(lam_fp)), **kw)
+    return [np.asarray(o) for o in out]
+
+
+@pytest.mark.parametrize("h,w,ny,nx", [(16, 16, 5, 5), (8, 16, 3, 7)])
+@pytest.mark.parametrize("kind", SEARCH_KINDS)
+def test_full_search_kernel_route_matches_jax(kind, h, w, ny, nx):
+    """full_search_batch_kernel's CPU route (the plain version the card
+    tests hold the fused kernel to) against hevc_tpu's XLA full search and
+    full_search_batch_pallas (Pallas table in interpret mode): every
+    sample range (negative samples whose sums wrap among them), all-ties
+    tables, two zero bucket-padding rows, per-block mv_min and predictors
+    that are not zero, and a lam_fp whose products with the rate bits wrap
+    in int32."""
+    args = search_case(kind, 5, h, w, ny, nx, seed=h + 3 * nx, padding=2)
+    t = [torch.from_numpy(a) for a in args]
+    for lam_fp in SEARCH_LAMS:
+        with no_jax_cache_writes():
+            xla = [np.asarray(o) for o in jme.full_search_batch(
+                *args, np.int32(lam_fp), h=h, w=w, ny=ny, nx=nx)]
+        pallas = _jax_pallas_search(args, lam_fp)
+        got = sad.full_search_batch_kernel(*t, lam_fp)
+        assert len(got) == 4
+        for g, a, b in zip(got, xla, pallas):
+            assert g.dtype == torch.int32 and g.shape == (7,)
+            np.testing.assert_array_equal(g.numpy(), a)
+            np.testing.assert_array_equal(g.numpy(), b)
+
+
+@pytest.mark.parametrize("n,ny,nx", [(1, 1, 1), (7, 5, 5), (7, 3, 7),
+                                     (5, 2, 3), (3, 1, 9), (2, 33, 31)])
+@pytest.mark.parametrize("table", ["random", "flat", "huge"])
+def test_cost_argmin_plain_matches_jax_epilogue(table, n, ny, nx):
+    """cost_argmin's plain version (the card tests' oracle for
+    sad_cost_argmin) against full_search_batch_pallas's epilogue applied
+    to the same table: ties everywhere ("flat"), SADs near INT32_MAX whose
+    cost wraps ("huge"), single offsets and rows, odd ny * nx."""
+    sads = cost_table(table, n, ny, nx, seed=n * ny + nx)
+    _, _, *vecs = search_case("8bit", n, 4, 4, ny, nx, seed=ny + nx)
+    blks = np.zeros((n, 4, 4), np.int32)
+    areas = np.zeros((n, ny + 3, nx + 3), np.int32)
+    for lam_fp in SEARCH_LAMS:
+        exp = _jax_pallas_search((blks, areas, *vecs), lam_fp, table=sads)
+        got = sad.cost_argmin(torch.from_numpy(sads),
+                              *map(torch.from_numpy, vecs), lam_fp)
+        for g, e in zip(got, exp):
+            np.testing.assert_array_equal(g.numpy(), e)

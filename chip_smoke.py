@@ -35,7 +35,14 @@ Phases, each printed on its own line with its seconds:
   7. encode 416x240 all-intra on the card and on the CPU: the streams must
      match, which holds the prescreen kernel to its plain version inside
      the encoder;
-  8. decode every stream of phases 3-7 with the port's own decoder: every
+ 7b. encode 1920x1080 random access (HM's encoder_randomaccess_main settings,
+     the IDR and one hierarchical-B GOP of 8, 9 frames) through the CLI
+     entry point on the card at 8 bits and, with the Main10 cfg, at 10 bits,
+     the launch counters reset just before each: the deep search kernels
+     (ssd_table_deep, box_energies_deep) run at 10 bits and not at 8;
+ 7c. encode 416x240 RA-Main10 and low-delay B (9 frames each) on the card
+     and on the CPU: each pair of streams must match;
+  8. decode every stream of phases 3-7c with the port's own decoder: every
      picture's MD5 SEI must check and the picture counts must match;
   9. encode 4 LDP and 2 all-intra 1080p frames under torch.profiler: the
      device time of every kernel and the device's busy share of each
@@ -43,7 +50,9 @@ Phases, each printed on its own line with its seconds:
  10. report the card.
 Phase 2 also holds the intra prescreen kernel to its plain version on
 1080p planes (8-bit, 10-bit, and one with flat regions where many modes
-tie), and times the reference padding beside F.pad(mode="replicate").
+tie), holds the deep SSD table and deep window energies to theirs on the
+1080p planes at 10 and 12 bits (and a 10-bit plane with flat regions), and
+times the reference padding beside F.pad(mode="replicate").
 The input is synthetic moving texture made from --seed with numpy.
 The last two lines are a JSON object with every kernel's numbers and the
 result {"ok": true, "device": {...}}. Any failed phase exits non-zero.
@@ -68,6 +77,12 @@ LDP_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
                        "encoder_lowdelay_P_main.cfg")
 INTRA_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
                          "encoder_intra_main.cfg")
+RA_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
+                      "encoder_randomaccess_main.cfg")
+RA10_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
+                        "encoder_randomaccess_main10.cfg")
+LDB_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
+                       "encoder_lowdelay_main.cfg")
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8
 # tensor-core ops/s, and 32-bit scalar (non-tensor-core) ops/s
 HBM_BPS = 3.35e12
@@ -83,10 +98,17 @@ PAD = 80
 N_FRAMES = 13
 # frames of the all-intra encodes
 N_INTRA = 5
+# frames of the random-access and low-delay B encodes: the IDR and one GOP
+# of eight
+N_RA = 9
 # md5 of the 1080p streams for --seed 1, as recorded in PERF.md: low-delay
 # P, and all-intra
 HD_MD5_SEED1 = "3c38a4a0a2472e9637789e622fb401e7"
 HD_INTRA_MD5_SEED1 = "825b596a8ee1b95f8cc1340e97ffb230"
+# md5 of the 1080p random-access streams (9 frames) for --seed 1: Main
+# (8-bit) and Main10
+HD_RA_MD5_SEED1 = "0d2387822770024889ce918ccb870e8c"
+HD_RA10_MD5_SEED1 = "76a44119fc94b6ae0e1bf499df94b4e8"
 
 
 def log(msg):
@@ -148,18 +170,24 @@ def clip_frames(w, h, n, seed, chroma=420):
     return frames
 
 
+def deep_plane(p, bit_depth):
+    """A uint8 plane at bit_depth > 8, int16: each sample s becomes
+    s << k | s & (2^k - 1), k = bit_depth - 8."""
+    k = bit_depth - 8
+    return ((p.astype(np.int16) << k) | (p & ((1 << k) - 1))).astype(np.int16)
+
+
 def write_clip(path, w, h, n, seed, chroma=420, bit_depth=8):
     """Write clip_frames(...) as planar YUV; returns the (8-bit) luma
-    planes. Above 8 bits each sample s becomes s << k | s & (2^k - 1),
-    k = bit_depth - 8, written as 16-bit little-endian."""
+    planes. Above 8 bits the samples are deep_plane's, written as 16-bit
+    little-endian."""
     frames = clip_frames(w, h, n, seed, chroma)
-    k = bit_depth - 8
     with open(path, "wb") as fh:
         for planes in frames:
             for p in planes:
-                if k:
-                    p = ((p.astype("<u2") << k) | (p & ((1 << k) - 1)))
-                fh.write(p.astype("<u2" if k else np.uint8).tobytes())
+                if bit_depth > 8:
+                    p = deep_plane(p, bit_depth).astype("<u2")
+                fh.write(p.tobytes())
     return [f[0] for f in frames]
 
 
@@ -380,6 +408,7 @@ def check_kernels(frames, seed, results):
         f"queued): {alone_ms:.4f} ms")
     time_torch_ops(frames, dev)
     check_intra_screen(frames, results)
+    check_deep_kernels(frames, results)
 
     rate = vabsdiff4_peak(dev)
     vabsdiff4_probe(dev, rate)
@@ -487,6 +516,147 @@ def check_intra_screen(frames, results):
     log(f"  intra_screen (one 1080p picture, four launches): kernel_ms "
         f"{ms:.4f} (queued {q_ms:.4f}) plain_ms (torch ops) {pms:.3f} "
         f"bound_ms {bms:.4f} ({by}, {ops / 1e9:.2f} G ops)")
+
+
+def check_deep_kernels(frames, results):
+    """The deep search kernels (ssd_table_deep and the box_energies_deep
+    launch it makes first) against their plain versions at the 1080p shapes
+    of both grids of the Main10 path: the two frames at 10 and at 12 bits,
+    and at 10 bits with flat 64x64 patches in both planes (many offsets
+    tie). Exact equality. The 10-bit planes are timed: host-paced and
+    queued, plain version, the ssd kernel alone (its box plane
+    precomputed), and the library yardsticks, timed only: cuDNN's float32
+    grouped convolution of the centred samples (the correlation) and
+    avg_pool2d of the float32 squares, whose sums above 2^24 are not
+    exact."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    dev = torch.device("cuda")
+    h, w = frames[0].shape
+    flat = [f.copy() for f in frames[:2]]
+    for f in flat:
+        for y0 in range(0, h - 64, 128):
+            for x0 in range(0, w - 64, 128):
+                f[y0:y0 + 64, x0:x0 + 64] = 60 + (y0 + x0) // 16
+    cases = {"10-bit": (frames, 10), "12-bit": (frames, 12),
+             "10-bit flat regions": (flat, 10)}
+    names = ("ssd_table_deep", "box_energies_deep")
+    acc = {k: {"ms": 0.0, "q_ms": 0.0, "plain_ms": 0.0, "bytes_b": 0.0,
+               "ops_b": 0.0, "err": 0, "lib": 0.0} for k in names}
+    alone_ms = 0.0
+    lib = runtime.kernel_lib("me_ssd")
+    torch.backends.cudnn.allow_tf32 = False
+    for case, (fr, bd) in cases.items():
+        orig = torch.from_numpy(deep_plane(fr[1], bd)).to(dev)
+        refp = me_ssd.pad_ref_device(
+            torch.from_numpy(deep_plane(fr[0], bd)).to(dev), PAD)
+        shift, mid = me_ssd.deep_centring(bd)
+        for size, r in ((32, 64), (16, 16)):
+            ny, nx = h // size, w // size
+            nyx, aw, n = 2 * r + 1, 2 * r + size, (h // size) * (w // size)
+            roi = refp[PAD - r:PAD - r + (ny - 1) * size + aw,
+                       PAD - r:PAD - r + (nx - 1) * size + aw]
+            kw = dict(size=size, r=r, ny=ny, nx=nx, depth=bd)
+            grid = f"{size}x{size} r={r}"
+            box_k = me_ssd.box_energies(roi, size, shift, mid)
+            rc = (roi.to(torch.int32) >> shift) - mid
+            box_p = me_ssd._box_energies(rc * rc, size)
+            ssd_k = me_ssd._ssd_table_deep(roi, orig, **kw)
+            ssd_p = me_ssd._ssd_table_deep_plain(roi, orig, **kw)
+            torch.cuda.synchronize()
+            e_box, e_ssd = max_abs_err(box_k, box_p), max_abs_err(ssd_k, ssd_p)
+            log(f"  deep {case} {grid} (shift {shift}, mid {mid}): "
+                f"box_energies_deep max_abs_err {e_box}, ssd_table_deep "
+                f"max_abs_err {e_ssd}")
+            if e_box != 0 or e_ssd != 0:
+                raise AssertionError(f"a deep kernel disagrees with its plain "
+                                     f"version on the {case} planes")
+            acc["box_energies_deep"]["err"] = max(
+                acc["box_energies_deep"]["err"], e_box)
+            acc["ssd_table_deep"]["err"] = max(acc["ssd_table_deep"]["err"],
+                                               e_ssd)
+            del box_p, ssd_p
+            if case != "10-bit":
+                continue
+            t = {}
+            c = acc["box_energies_deep"]
+            fn = lambda: me_ssd.box_energies(  # noqa: E731
+                roi, size, shift, mid)
+            t["box_energies_deep"] = (cuda_ms(fn, 5),
+                                      cuda_ms(fn, 20, queued=True))
+            c["plain_ms"] += cuda_ms(lambda: me_ssd._box_energies(
+                ((roi.to(torch.int32) >> shift) - mid) ** 2, size), 5)
+            sq = (rc.to(torch.float32) ** 2)[None, None]
+            fn = lambda: torch.nn.functional.avg_pool2d(  # noqa: E731
+                sq, size, stride=1, divisor_override=1)
+            e_lib = float((fn()[0, 0] - box_k.to(torch.float32)).abs().max())
+            lib_ms = cuda_ms(fn, 5)
+            c["lib"] += lib_ms
+            log(f"  box_energies_deep {grid}: library avg_pool2d "
+                f"{lib_ms:.4f} ms (float32, not exact here: max_abs_err "
+                f"{e_lib:g} against the kernel)")
+            del sq
+            c["bytes_b"] += roi.numel() * 2 + box_k.numel() * 4
+            # shift, centre and square per input sample, two sliding-sum
+            # steps per output
+            c["ops_b"] += 3.0 * roi.numel() + 4.0 * box_k.numel()
+
+            a = acc["ssd_table_deep"]
+            fn = lambda: me_ssd._ssd_table_deep(roi, orig, **kw)  # noqa: E731
+            t["ssd_table_deep"] = (cuda_ms(fn, 5), cuda_ms(fn, 20, queued=True))
+            stream = runtime.stream_of(roi)
+            rcs = []
+
+            def alone():
+                rcs.append(lib.hevc_ssd_table_deep(
+                    roi.data_ptr(), roi.stride(0), orig.data_ptr(),
+                    orig.stride(0), box_k.data_ptr(), box_k.stride(0),
+                    ssd_k.data_ptr(), size, r, ny, nx, shift, mid, stream))
+            t_alone = cuda_ms(alone, 20, queued=True)
+            if any(rcs):
+                raise AssertionError(f"ssd_table_deep kernel alone: launch "
+                                     f"error {max(rcs)}")
+            alone_ms += t_alone
+            a["plain_ms"] += cuda_ms(
+                lambda: me_ssd._ssd_table_deep_plain(roi, orig, **kw), 2)
+            a["bytes_b"] += (roi.numel() * 2 + n * size * size * 2
+                             + ssd_k.numel() * 4)
+            # three int8 products, two operations a multiply-add
+            a["ops_b"] += 3 * 2.0 * n * nyx * nyx * size * size
+            areas = rc.to(torch.float32).unfold(0, aw, size).unfold(
+                1, aw, size).reshape(1, n, aw, aw).contiguous()
+            blks = ((orig[:ny * size, :nx * size].to(torch.int32) >> shift)
+                    - mid).to(torch.float32).reshape(ny, size, nx, size)
+            blks = blks.permute(0, 2, 1, 3).reshape(n, 1, size, size)
+            a["lib"] += cuda_ms(lambda: torch.nn.functional.conv2d(
+                areas, blks, groups=n), 3)
+            del areas, blks
+            for k, (ms, q_ms) in t.items():
+                acc[k]["ms"] += ms
+                acc[k]["q_ms"] += q_ms
+            log(f"  deep 10-bit {grid} ms (queued in brackets): " + ", ".join(
+                f"{k} {ms:.4f} ({q_ms:.4f})" for k, (ms, q_ms) in t.items())
+                + f"; ssd_table_deep kernel alone ({t_alone:.4f})")
+            del ssd_k, box_k, rc
+    for name, replaces, rate in (
+            ("ssd_table_deep", "hevc_tpu/ops/me_mxu.py:142", INT8_TC_OPS),
+            ("box_energies_deep", "hevc_tpu/ops/me_mxu.py:124",
+             SCALAR32_OPS)):
+        a = acc[name]
+        bms, by = bound_ms(a["bytes_b"], a["ops_b"], rate)
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": "hevc_tpu_torch/csrc/me_ssd.cu", "replaces": replaces,
+            "max_abs_err": a["err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
+            "bound_ms": bms, "bound_by": by, "library_ms": a["lib"],
+            "queued_ms": a["q_ms"]}
+        log(f"  {name} (10-bit, one reference, both grids): kernel_ms "
+            f"{a['ms']:.4f} (queued {a['q_ms']:.4f}) plain_ms "
+            f"{a['plain_ms']:.3f} bound_ms {bms:.4f} ({by}, "
+            f"{a['ops_b'] / 1e9:.1f} G ops, {a['bytes_b'] / 1e6:.1f} MB) "
+            f"library_ms {a['lib']:.4f}")
+    log(f"  ssd_table_deep kernel alone (10-bit, both grids, box plane "
+        f"precomputed, queued): {alone_ms:.4f} ms")
 
 
 def vabsdiff4_peak(dev):
@@ -923,11 +1093,13 @@ def encode(tmp, name, w, h, n, seed, device, chroma=420, recon=False,
 streams = {}
 
 
-def check_hd_encode(stream, secs, out, frames, tmp, name, md5_seed1, seed):
+def check_hd_encode(stream, secs, out, frames, tmp, name, md5_seed1, seed,
+                    bit_depth=8):
     """Log and check a 1080p encode: md5 (against its anchor for --seed 1),
     start code, and finite recon PSNR above 25 dB."""
     from hevc_tpu_torch.utils.timing import timers
-    ps = psnr_y(frames, os.path.join(tmp, f"{name}_rec.yuv"), 1920, 1080)
+    ps = psnr_y(frames, os.path.join(tmp, f"{name}_rec.yuv"), 1920, 1080,
+                bit_depth)
     fps_line = [ln for ln in out.splitlines() if "fps" in ln]
     md5 = hashlib.md5(stream).hexdigest()
     log(f"  {len(stream)} bytes, md5 {md5}"
@@ -943,17 +1115,21 @@ def check_hd_encode(stream, secs, out, frames, tmp, name, md5_seed1, seed):
         raise AssertionError(f"recon PSNR too low: {ps}")
 
 
-def psnr_y(frames, rec_path, w, h):
-    rec = np.fromfile(rec_path, np.uint8)
+def psnr_y(frames, rec_path, w, h, bit_depth=8):
+    """Luma PSNR of each recon picture against the source (the 8-bit planes
+    write_clip returns, at bit_depth as it wrote them)."""
+    rec = np.fromfile(rec_path, "<u2" if bit_depth > 8 else np.uint8)
     fsz = w * h * 3 // 2
     if rec.size != fsz * len(frames):
-        raise AssertionError(f"recon holds {rec.size} bytes, expected "
+        raise AssertionError(f"recon holds {rec.size} samples, expected "
                              f"{fsz * len(frames)}")
+    peak = (1 << bit_depth) - 1
     out = []
     for i, y in enumerate(frames):
         r = rec[i * fsz:i * fsz + w * h].reshape(h, w).astype(np.float64)
-        mse = ((r - y) ** 2).mean()
-        out.append(99.99 if mse == 0 else 10 * np.log10(255 ** 2 / mse))
+        src = deep_plane(y, bit_depth) if bit_depth > 8 else y
+        mse = ((r - src) ** 2).mean()
+        out.append(99.99 if mse == 0 else 10 * np.log10(peak ** 2 / mse))
     return out
 
 
@@ -1090,6 +1266,60 @@ def main():
             if s_gpu != s_cpu:
                 raise AssertionError("all-intra cuda and cpu streams differ")
 
+        with Phase("7b encode 1920x1080 random access on cuda, Main and "
+                   "Main10"):
+            deep = ("ssd_table_deep", "box_energies_deep")
+            for name, cfg, bd, md5 in (
+                    ("hd_ra", RA_CFG, 8, HD_RA_MD5_SEED1),
+                    ("hd_ra10", RA10_CFG, 10, HD_RA10_MD5_SEED1)):
+                runtime.reset_launches()
+                timers.reset()
+                timers.enabled = True
+                stream, secs, out, frames = encode(
+                    tmp, name, 1920, 1080, N_RA, args.seed, "cuda",
+                    recon=True, cfg=cfg, bit_depth=bd)
+                timers.enabled = False
+                ra_launches = dict(runtime.launches)
+                log(f"  {name} ({bd}-bit):")
+                check_hd_encode(stream, secs, out, frames, tmp, name, md5,
+                                args.seed, bit_depth=bd)
+                log(f"  launches: {ra_launches}")
+                on = deep if bd > 8 else ("ssd_table", "box_energies")
+                off = ("ssd_table", "box_energies") if bd > 8 else deep
+                for k in on + ("argmin_two_pass",):
+                    if ra_launches[k] <= 0:
+                        raise AssertionError(f"{name}: {k} was never "
+                                             f"launched")
+                for k in off:
+                    if ra_launches[k] != 0:
+                        raise AssertionError(f"{name}: {k} launched at "
+                                             f"{bd} bits")
+                if bd > 8:
+                    for k in deep:
+                        results[k]["launches"] = ra_launches[k]
+
+        with Phase("7c 416x240 RA-Main10 and low-delay B cuda vs cpu"):
+            for name, cfg, bd in (("cif_ra10", RA10_CFG, 10),
+                                  ("cif_ldb", LDB_CFG, 8)):
+                runtime.reset_launches()
+                s_gpu, t_gpu, _, _ = encode(tmp, f"{name}_gpu", 416, 240,
+                                            N_RA, args.seed, "cuda", cfg=cfg,
+                                            bit_depth=bd)
+                gpu_launches = dict(runtime.launches)
+                s_cpu, t_cpu, _, _ = encode(tmp, f"{name}_cpu", 416, 240,
+                                            N_RA, args.seed, "cpu", cfg=cfg,
+                                            bit_depth=bd)
+                log(f"  {name}: cuda {len(s_gpu)} bytes md5 "
+                    f"{hashlib.md5(s_gpu).hexdigest()} {t_gpu:.2f} s; cpu "
+                    f"{len(s_cpu)} bytes md5 {hashlib.md5(s_cpu).hexdigest()}"
+                    f" {t_cpu:.2f} s; cuda launches {gpu_launches}")
+                if s_gpu != s_cpu:
+                    raise AssertionError(f"{name}: cuda and cpu streams "
+                                         f"differ")
+                key = "ssd_table_deep" if bd > 8 else "ssd_table"
+                if gpu_launches[key] <= 0:
+                    raise AssertionError(f"{name}: {key} was never launched")
+
         with Phase("8 decode every stream with the port's decoder"):
             from hevc_tpu_torch.decoder.top import DecoderTop
             for name, (data, n) in streams.items():
@@ -1122,7 +1352,8 @@ def main():
 
     order = ["ssd_table", "argmin_two_pass", "box_energies", "sad_table",
              "sad_cost_argmin", "full_search", "sad_table_planes",
-             "me_planes", "intra_screen"]
+             "me_planes", "intra_screen", "ssd_table_deep",
+             "box_energies_deep"]
     kernels = [results[k] for k in order]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -37,6 +37,26 @@
 // row stride is an odd multiple of 16 bytes, so ldmatrix rows do not
 // conflict. Three thread blocks share an SM (80 registers a thread).
 //
+// ssd_table_deep replaces `_ssd_table_deep` (me_mxu.py:142, with
+// `_split128` and three `_corr_grouped` calls): the same table for 9-14-bit
+// samples (int16). Each sample is shifted to at most 10 effective bits and
+// centred, a' = (a >> shift) - mid in [-512, 511], and split as
+// a' = 128 hi + lo, lo = ((a' + 64) & 127) - 64 in [-64, 63], hi in [-4, 4],
+// so that the correlation is three int8 ones: c_hh, c_ll and c_ss of
+// s = hi + lo, combined as corr = (c_hh << 14) + ((c_ss - c_hh - c_ll) << 7)
+// + c_ll, which the kernel forms as 16256 c_hh + 128 c_ss - 127 c_ll in
+// unsigned (wrapping) 32-bit arithmetic: the same bits as XLA's int32. It is
+// ssd_table's design run for three products. The int16 window is read once
+// and staged as three int8 windows (hi, lo, s; |s| <= 68), each with its B
+// words. Per work item the three products run one after the other into one
+// set of accumulators, each folded into the combined correlation before the
+// next. What bounds it: operations, three times ssd_table's (at 1080p
+// 202 G int8 operations a reference on the 32-grid at r = 64, 13.4 G on the
+// 16-grid at r = 16, unpadded). Shared memory: three parts of ssd_table's
+// layout (148 KB for 32 x 32 at r = 64); with the combined correlation
+// beside the accumulators (181 registers at 32 x 32) one thread block of
+// eight warps runs an SM.
+//
 // argmin_two_pass replaces `_argmin_two_pass` (LOCAL_W = 8):
 //   pass 1: argmin of the 3x3-neighbourhood sum of
 //           cost1 = ssd + ((lam * bits0) >> 8) (zero outside the grid);
@@ -78,6 +98,12 @@
 // rows are read once a band, the halo columns (size of 128) once a strip.
 // What holds it back: about 11 warps an SM at 1080p, each a chain of
 // dependent load rounds and shuffles, so latency rather than bytes.
+// box_energies_deep is the same kernel on int16 samples (the deep path's
+// `_window_energies` of rc * rc, me_mxu.py:176): a lane reads its four
+// samples with four 2-byte loads and keeps them centred, (a >> shift) -
+// mid, two to a word; columns past the row read as 0. Every window sum is
+// below 1024 * 512^2 < 2^31. Bound: bytes (2.4 MB more in than the 8-bit
+// plane at 1080p).
 #include <algorithm>
 #include <cstdint>
 
@@ -162,6 +188,46 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// acc[mt][ns] += the correlation of one work item's first mcount m16 tiles
+// of window rows with every block row's B words (swb: [SIZE][BW]); a_base
+// is this lane's ldmatrix address of the item's first window row and
+// column (see ssd_table_kernel).
+template <int SIZE, int UNROLL>
+__device__ __forceinline__ void correlate_item(
+    int (&acc)[kMTiles][SsdTile<SIZE>::TN / 8][4], uint32_t a_base,
+    const uint32_t* swb, int S, int mcount, int g, int t) {
+  using L = SsdLayout<SIZE>;
+  constexpr int TN = L::TN, KS = L::KS, NS = TN / 8, BW = L::BW;
+#pragma unroll (UNROLL)
+  for (int i = 0; i < SIZE; ++i) {
+    // B fragment (ks, ns, h): k = 32 ks + 16 h + 4 t + q, n = 8 ns + g,
+    // T = b[i][k - n]: the word at offset 32 ks + 16 h - 8 ns + 4 t - g
+    const uint32_t* wb = swb + i * BW + (TN - 1) + 4 * t - g;
+    uint32_t bf[KS][NS][2];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int ns = 0; ns < NS; ++ns)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          bf[ks][ns][h] = wb[32 * ks + 16 * h - 8 * ns];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt) {
+      if (mt < mcount) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t a0, a1, a2, a3;
+          ldmatrix_x4(a_base + (mt * 16 + i) * S + 32 * ks, a0, a1, a2, a3);
+#pragma unroll
+          for (int ns = 0; ns < NS; ++ns)
+            mma_s8(acc[mt][ns], a0, a1, a2, a3, bf[ks][ns][0],
+                   bf[ks][ns][1]);
+        }
+      }
+    }
+  }
+}
+
 template <int SIZE>
 __global__ void __launch_bounds__(kSsdMaxWarps * 32, 3)
 ssd_table_kernel(const uint8_t* __restrict__ roi, long long roi_stride,
@@ -169,7 +235,7 @@ ssd_table_kernel(const uint8_t* __restrict__ roi, long long roi_stride,
                  const int* __restrict__ box, long long box_stride,
                  int* __restrict__ out, int r, int nx) {
   using L = SsdLayout<SIZE>;
-  constexpr int TN = L::TN, KS = L::KS, NS = TN / 8, BW = L::BW;
+  constexpr int TN = L::TN, NS = TN / 8, BW = L::BW;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int b2_warp[kSsdMaxWarps];
   const L lay(r);
@@ -261,36 +327,8 @@ ssd_table_kernel(const uint8_t* __restrict__ roi, long long roi_stride,
       for (int ns = 0; ns < NS; ++ns)
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[mt][ns][c] = 0;
-    const uint32_t a_base =
-        sw_base + (m0 + a_row) * S + dx0 + a_col;
-#pragma unroll 4
-    for (int i = 0; i < SIZE; ++i) {
-      // B fragment (ks, ns, h): k = 32 ks + 16 h + 4 t + q, n = 8 ns + g,
-      // T = b[i][k - n]: the word at offset 32 ks + 16 h - 8 ns + 4 t - g
-      const uint32_t* wb = swb + i * BW + (TN - 1) + 4 * t - g;
-      uint32_t bf[KS][NS][2];
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-        for (int ns = 0; ns < NS; ++ns)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            bf[ks][ns][h] = wb[32 * ks + 16 * h - 8 * ns];
-#pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt) {
-        if (mt < mcount) {
-#pragma unroll
-          for (int ks = 0; ks < KS; ++ks) {
-            uint32_t a0, a1, a2, a3;
-            ldmatrix_x4(a_base + (mt * 16 + i) * S + 32 * ks, a0, a1, a2, a3);
-#pragma unroll
-            for (int ns = 0; ns < NS; ++ns)
-              mma_s8(acc[mt][ns], a0, a1, a2, a3, bf[ks][ns][0],
-                     bf[ks][ns][1]);
-          }
-        }
-      }
-    }
+    correlate_item<SIZE, 4>(acc, sw_base + (m0 + a_row) * S + dx0 + a_col,
+                            swb, S, mcount, g, t);
     // epilogue: c0, c1 at (row g, cols 2t, 2t+1); c2, c3 at row g + 8
 #pragma unroll
     for (int mt = 0; mt < kMTiles; ++mt) {
@@ -329,12 +367,209 @@ int launch_ssd_table(const void* roi, long long roi_stride, const void* orig,
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------- ssd_table_deep
+
+constexpr int kDeepParts = 3;  // the hi, lo and s = hi + lo samples
+
+// A centred deep sample c = 128 hi + lo as the int8 bytes of hi, lo and
+// s = hi + lo (hi in [-4, 4], lo in [-64, 63]; exact for |c| <= 512).
+__device__ __forceinline__ void split128(int c, uint32_t (&b)[kDeepParts]) {
+  const int lo = ((c + 64) & 127) - 64, hi = (c - lo) >> 7;
+  b[0] = static_cast<uint32_t>(hi) & 0xffu;
+  b[1] = static_cast<uint32_t>(lo) & 0xffu;
+  b[2] = static_cast<uint32_t>(hi + lo) & 0xffu;
+}
+
+// The weight of product p (0: hi.hi, 1: lo.lo, 2: s.s) in
+// corr = 16256 c_hh - 127 c_ll + 128 c_ss (mod 2^32).
+__device__ __forceinline__ uint32_t deep_weight(int p) {
+  return p == 0 ? 16256u : (p == 1 ? 0u - 127u : 128u);
+}
+
+template <int SIZE>
+__global__ void __launch_bounds__(kSsdMaxWarps * 32, 1)
+ssd_table_deep_kernel(const int16_t* __restrict__ roi, long long roi_stride,
+                      const int16_t* __restrict__ orig, long long orig_stride,
+                      const int* __restrict__ box, long long box_stride,
+                      int* __restrict__ out, int r, int nx, int shift,
+                      int mid) {
+  using L = SsdLayout<SIZE>;
+  constexpr int TN = L::TN, NS = TN / 8, BW = L::BW;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int b2_warp[kSsdMaxWarps];
+  const L lay(r);
+  const int nyx = lay.nyx, aw = lay.aw, S = lay.stride;
+  // three parts of ssd_table's layout, h = 0 for hi, 1 for lo, 2 for s: the
+  // int8 window [rows][S], the B words [SIZE][BW], the block [SIZE][SIZE]
+  const size_t part = lay.bytes();
+  uint32_t* sw32[kDeepParts];
+  uint32_t* swb[kDeepParts];
+  uint8_t* sb[kDeepParts];
+#pragma unroll
+  for (int h = 0; h < kDeepParts; ++h) {
+    sw32[h] = reinterpret_cast<uint32_t*>(smem + h * part);
+    swb[h] = reinterpret_cast<uint32_t*>(smem + h * part + lay.window_bytes());
+    sb[h] = reinterpret_cast<uint8_t*>(swb[h] + SIZE * BW);
+  }
+  const int n = blockIdx.x;
+  const int by = n / nx, bx = n - (n / nx) * nx;
+
+  // the window, split as it is staged; zero past aw in every part
+  const int16_t* ga = roi + (static_cast<long long>(by) * SIZE) * roi_stride +
+                      static_cast<long long>(bx) * SIZE;
+  const int s4 = S >> 2;
+  for (int k = threadIdx.x; k < lay.rows * s4; k += blockDim.x) {
+    const int y = k / s4, x = (k - y * s4) << 2;
+    uint32_t w[kDeepParts] = {0, 0, 0};
+    if (y < aw) {
+      const int16_t* row = ga + y * roi_stride;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (x + q < aw) {
+          uint32_t b[kDeepParts];
+          split128((static_cast<int>(row[x + q]) >> shift) - mid, b);
+#pragma unroll
+          for (int h = 0; h < kDeepParts; ++h) w[h] |= b[h] << (8 * q);
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kDeepParts; ++h) sw32[h][k] = w[h];
+  }
+  const int16_t* gb = orig +
+                      (static_cast<long long>(by) * SIZE) * orig_stride +
+                      static_cast<long long>(bx) * SIZE;
+  int b2 = 0;
+  for (int k = threadIdx.x; k < SIZE * SIZE; k += blockDim.x) {
+    const int y = k / SIZE, x = k - (k / SIZE) * SIZE;
+    const int v = (static_cast<int>(gb[y * orig_stride + x]) >> shift) - mid;
+    uint32_t b[kDeepParts];
+    split128(v, b);
+#pragma unroll
+    for (int h = 0; h < kDeepParts; ++h) sb[h][k] = static_cast<uint8_t>(b[h]);
+    b2 += v * v;
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    b2 += __shfl_xor_sync(0xffffffffu, b2, off);
+  if ((threadIdx.x & 31) == 0) b2_warp[threadIdx.x >> 5] = b2;
+  __syncthreads();
+  // B words of every part, as in ssd_table
+  for (int k = threadIdx.x; k < kDeepParts * SIZE * BW; k += blockDim.x) {
+    const int h = k / (SIZE * BW), kk = k - h * (SIZE * BW);
+    const int i = kk / BW, o = kk - (kk / BW) * BW - (TN - 1);
+    uint32_t w = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (o + q >= 0 && o + q < SIZE)
+        w |= static_cast<uint32_t>(sb[h][i * SIZE + o + q]) << (8 * q);
+    swb[h][kk] = w;
+  }
+  b2 = 0;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) b2 += b2_warp[w];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 16;
+  uint32_t sw_base[kDeepParts];
+#pragma unroll
+  for (int h = 0; h < kDeepParts; ++h)
+    sw_base[h] = static_cast<uint32_t>(__cvta_generic_to_shared(sw32[h]));
+  int* o = out + static_cast<long long>(n) * nyx * nyx;
+  const int* bw = box + (static_cast<long long>(by) * SIZE) * box_stride +
+                  static_cast<long long>(bx) * SIZE;
+  const int items = lay.items();
+  for (int item = threadIdx.x >> 5; item < items; item += blockDim.x >> 5) {
+    const int mg = item / lay.nt_n, nt = item - mg * lay.nt_n;
+    const int m0 = mg * kMTiles * 16, dx0 = nt * TN;
+    const int mcount = min(kMTiles, lay.mt_n - mg * kMTiles);
+    uint32_t corr[kMTiles][NS][4];
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+      for (int ns = 0; ns < NS; ++ns)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) corr[mt][ns][c] = 0;
+    const int a_off = (m0 + a_row) * S + dx0 + a_col;
+#pragma unroll
+    for (int p = 0; p < kDeepParts; ++p) {
+      int acc[kMTiles][NS][4];
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+        for (int ns = 0; ns < NS; ++ns)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mt][ns][c] = 0;
+      correlate_item<SIZE, 2>(acc, sw_base[p] + a_off, swb[p], S, mcount, g,
+                              t);
+      const uint32_t wgt = deep_weight(p);
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+        for (int ns = 0; ns < NS; ++ns)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            corr[mt][ns][c] += wgt * static_cast<uint32_t>(acc[mt][ns][c]);
+    }
+    // epilogue: ssd = win + sum(b'^2) - 2 corr, wrapping
+#pragma unroll
+    for (int mt = 0; mt < kMTiles; ++mt) {
+      if (mt < mcount) {
+#pragma unroll
+        for (int ns = 0; ns < NS; ++ns)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int dy = m0 + mt * 16 + g + 8 * (c >> 1);
+            const int dx = dx0 + 8 * ns + 2 * t + (c & 1);
+            if (dy < nyx && dx < nyx)
+              o[dy * nyx + dx] = static_cast<int>(
+                  static_cast<uint32_t>(bw[dy * box_stride + dx]) +
+                  static_cast<uint32_t>(b2) - 2u * corr[mt][ns][c]);
+          }
+      }
+    }
+  }
+}
+
+template <int SIZE>
+int launch_ssd_table_deep(const void* roi, long long roi_stride,
+                          const void* orig, long long orig_stride,
+                          const void* box, long long box_stride, void* out,
+                          int r, int ny, int nx, int shift, int mid,
+                          cudaStream_t stream) {
+  const SsdLayout<SIZE> lay(r);
+  const size_t smem = kDeepParts * lay.bytes();
+  cudaError_t e = allow_smem(ssd_table_deep_kernel<SIZE>, smem);
+  if (e != cudaSuccess) return e;
+  const int warps = std::min(kSsdMaxWarps, lay.items());
+  if (ny > 0 && nx > 0)
+    ssd_table_deep_kernel<SIZE><<<ny * nx, warps * 32, smem, stream>>>(
+        static_cast<const int16_t*>(roi), roi_stride,
+        static_cast<const int16_t*>(orig), orig_stride,
+        static_cast<const int*>(box), box_stride, static_cast<int*>(out), r,
+        nx, shift, mid);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------- box_energies
 
 constexpr int kBoxWarps = 4;   // adjacent strips of one thread block
 constexpr int kBoxRows = 16;   // output rows of a band
 constexpr int kBoxBatch = 8;   // rows whose loads are in flight at once
 constexpr unsigned kFull = 0xffffffffu;
+
+// A lane's four samples of one row: four bytes of 8-bit samples, or four
+// centred deep samples, two int16 halves a word.
+template <typename T>
+struct BoxWord;
+template <>
+struct BoxWord<uint8_t> {
+  using type = uint32_t;
+};
+template <>
+struct BoxWord<int16_t> {
+  using type = uint2;
+};
 
 // col[k] += sign * (byte k of v - 128)^2
 template <int SIGN>
@@ -344,6 +579,17 @@ __device__ __forceinline__ void add_sq(uint32_t v, int (&col)[4]) {
     const int x = static_cast<int>((v >> (8 * k)) & 0xffu) - 128;
     col[k] += SIGN * x * x;
   }
+}
+
+// col[k] += sign * (centred sample k)^2
+template <int SIGN>
+__device__ __forceinline__ void add_sq(uint2 v, int (&col)[4]) {
+  const int x[4] = {static_cast<int16_t>(v.x & 0xffffu),
+                    static_cast<int16_t>(v.x >> 16),
+                    static_cast<int16_t>(v.y & 0xffffu),
+                    static_cast<int16_t>(v.y >> 16)};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) col[k] += SIGN * x[k] * x[k];
 }
 
 // box[y, x] = sum of (roi - 128)^2 over the SIZE x SIZE square at (y, x),
@@ -356,11 +602,14 @@ __device__ __forceinline__ void add_sq(uint32_t v, int (&col)[4]) {
 // shuffles, and output column 4l + k corrects it by the first k column
 // sums of lane l and of lane l + SIZE/4, and stores 16 bytes (box is
 // 16-byte aligned and box_stride a multiple of 4).
-template <int SIZE>
+// T is uint8_t (8-bit samples, centred on 128; shift and mid unused) or
+// int16_t (deep samples, centred as (a >> shift) - mid).
+template <int SIZE, typename T>
 __global__ void __launch_bounds__(32 * kBoxWarps)
-box_energies_kernel(const uint8_t* __restrict__ roi, long long roi_stride,
+box_energies_kernel(const T* __restrict__ roi, long long roi_stride,
                     int out_h, int out_w, int* __restrict__ box,
-                    long long box_stride) {
+                    long long box_stride, int shift, int mid) {
+  using Word = typename BoxWord<T>::type;
   constexpr int kOut = 128 - SIZE;  // output columns of a strip
   constexpr int kLanes = SIZE / 4;  // lanes a window spans
   const int lane = threadIdx.x & 31;
@@ -379,20 +628,35 @@ box_energies_kernel(const uint8_t* __restrict__ roi, long long roi_stride,
   const unsigned dsh = 8 * min(dd, 3);
   const uint32_t keep = dd >= 4 ? 0u : 0xffffffffu >> (8 * dd);
   const uint32_t fill = 0x80808080u & ~keep;
-  // row y's word: two aligned word loads and a funnel shift, as the row may
-  // start at any byte (the shift is the same for every lane of the warp)
-  auto load = [&](int y) -> uint32_t {
-    const uintptr_t p = reinterpret_cast<uintptr_t>(roi + y * roi_stride + cl);
-    const uint32_t* a =
-        reinterpret_cast<const uint32_t*>(p & ~static_cast<uintptr_t>(3));
-    const unsigned sh = static_cast<unsigned>(p & 3) * 8;
-    const uint32_t w = __funnelshift_r(__ldg(a), __ldg(a + (sh != 0)), sh);
-    return ((w >> dsh) & keep) | fill;
+  auto load = [&](int y) -> Word {
+    if constexpr (sizeof(T) == 1) {
+      // row y's word: two aligned word loads and a funnel shift, as the row
+      // may start at any byte (the shift is the same for every lane)
+      const uintptr_t p =
+          reinterpret_cast<uintptr_t>(roi + y * roi_stride + cl);
+      const uint32_t* a =
+          reinterpret_cast<const uint32_t*>(p & ~static_cast<uintptr_t>(3));
+      const unsigned sh = static_cast<unsigned>(p & 3) * 8;
+      const uint32_t w = __funnelshift_r(__ldg(a), __ldg(a + (sh != 0)), sh);
+      return ((w >> dsh) & keep) | fill;
+    } else {
+      // samples c .. c + 3 are cl + dd .. cl + dd + 3; those past the row
+      // (k + dd >= 4) read as 0, a zero square
+      const T* p = roi + y * roi_stride + cl + dd;
+      uint32_t h[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        h[k] = k + dd < 4 ? static_cast<uint32_t>(
+                                (static_cast<int>(__ldg(p + k)) >> shift) -
+                                mid) & 0xffffu
+                          : 0u;
+      return make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
+    }
   };
   int col[4] = {0, 0, 0, 0};
   // the window's first SIZE - 1 rows, all loads issued before their sums
   {
-    uint32_t v[SIZE - 1];
+    Word v[SIZE - 1];
 #pragma unroll
     for (int r = 0; r < SIZE - 1; ++r) v[r] = load(y0 + r);
 #pragma unroll
@@ -424,7 +688,7 @@ box_energies_kernel(const uint8_t* __restrict__ roi, long long roi_stride,
     if (y + kBoxBatch <= y1) {
       // a whole batch: no branch between its rows, so their shuffle
       // chains can interleave
-      uint32_t e[kBoxBatch], l[kBoxBatch];
+      Word e[kBoxBatch], l[kBoxBatch];
 #pragma unroll
       for (int u = 0; u < kBoxBatch; ++u) {
         e[u] = load(y + u + SIZE - 1);
@@ -446,19 +710,41 @@ box_energies_kernel(const uint8_t* __restrict__ roi, long long roi_stride,
   }
 }
 
-template <int SIZE>
+template <int SIZE, typename T>
 int launch_box_energies(const void* roi, long long roi_stride, int out_h,
-                        int out_w, void* box, long long box_stride,
-                        cudaStream_t stream) {
+                        int out_w, void* box, long long box_stride, int shift,
+                        int mid, cudaStream_t stream) {
   constexpr int kOut = 128 - SIZE;
   const int strips = (out_w + kOut - 1) / kOut;
   const dim3 grid((strips + kBoxWarps - 1) / kBoxWarps,
                   (out_h + kBoxRows - 1) / kBoxRows);
   if (out_h > 0 && out_w > 0)
-    box_energies_kernel<SIZE><<<grid, 32 * kBoxWarps, 0, stream>>>(
-        static_cast<const uint8_t*>(roi), roi_stride, out_h, out_w,
-        static_cast<int*>(box), box_stride);
+    box_energies_kernel<SIZE, T><<<grid, 32 * kBoxWarps, 0, stream>>>(
+        static_cast<const T*>(roi), roi_stride, out_h, out_w,
+        static_cast<int*>(box), box_stride, shift, mid);
   return cudaGetLastError();
+}
+
+template <typename T>
+int box_energies_entry(const void* roi, long long roi_stride, int out_h,
+                       int out_w, int size, int shift, int mid, void* box,
+                       long long box_stride, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (box_stride % 4 != 0 || reinterpret_cast<uintptr_t>(box) % 16 != 0)
+    return cudaErrorInvalidValue;
+  switch (size) {
+    case 8:
+      return launch_box_energies<8, T>(roi, roi_stride, out_h, out_w, box,
+                                       box_stride, shift, mid, s);
+    case 16:
+      return launch_box_energies<16, T>(roi, roi_stride, out_h, out_w, box,
+                                        box_stride, shift, mid, s);
+    case 32:
+      return launch_box_energies<32, T>(roi, roi_stride, out_h, out_w, box,
+                                        box_stride, shift, mid, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // ------------------------------------------------------ argmin_two_pass
@@ -703,19 +989,41 @@ extern "C" int hevc_argmin_two_pass(const void* ssd, const void* bits0,
 extern "C" int hevc_box_energies(const void* roi, long long roi_stride,
                                  int out_h, int out_w, int size, void* box,
                                  long long box_stride, void* stream) {
+  return box_energies_entry<uint8_t>(roi, roi_stride, out_h, out_w, size, 0,
+                                     128, box, box_stride, stream);
+}
+
+// The same of an int16 plane (row stride roi_stride in samples, 9-14-bit
+// samples) with the squares of (a >> shift) - mid.
+extern "C" int hevc_box_energies_deep(const void* roi, long long roi_stride,
+                                      int out_h, int out_w, int size,
+                                      int shift, int mid, void* box,
+                                      long long box_stride, void* stream) {
+  return box_energies_entry<int16_t>(roi, roi_stride, out_h, out_w, size,
+                                     shift, mid, box, box_stride, stream);
+}
+
+// ssd_table of int16 planes (row strides in samples) for 9-14-bit samples,
+// each centred as (a >> shift) - mid; box is box_energies_deep's plane.
+extern "C" int hevc_ssd_table_deep(const void* roi, long long roi_stride,
+                                   const void* orig, long long orig_stride,
+                                   const void* box, long long box_stride,
+                                   void* out, int size, int r, int ny, int nx,
+                                   int shift, int mid, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (box_stride % 4 != 0 || reinterpret_cast<uintptr_t>(box) % 16 != 0)
-    return cudaErrorInvalidValue;
   switch (size) {
     case 8:
-      return launch_box_energies<8>(roi, roi_stride, out_h, out_w, box,
-                                    box_stride, s);
+      return launch_ssd_table_deep<8>(roi, roi_stride, orig, orig_stride, box,
+                                      box_stride, out, r, ny, nx, shift, mid,
+                                      s);
     case 16:
-      return launch_box_energies<16>(roi, roi_stride, out_h, out_w, box,
-                                     box_stride, s);
+      return launch_ssd_table_deep<16>(roi, roi_stride, orig, orig_stride,
+                                       box, box_stride, out, r, ny, nx, shift,
+                                       mid, s);
     case 32:
-      return launch_box_energies<32>(roi, roi_stride, out_h, out_w, box,
-                                     box_stride, s);
+      return launch_ssd_table_deep<32>(roi, roi_stride, orig, orig_stride,
+                                       box, box_stride, out, r, ny, nx, shift,
+                                       mid, s);
     default:
       return cudaErrorInvalidValue;
   }

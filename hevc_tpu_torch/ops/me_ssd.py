@@ -15,10 +15,13 @@ The SSD table (its correlation on the int8 tensor cores), the window
 energies it reads (a box-sum plane) and the two-pass argmin (one tiled pass
 over the tables) are CUDA kernels (csrc/me_ssd.cu); each has its plain
 PyTorch version here (the window energies' is a torch integral image),
-which the wrappers run only for tensors on the CPU. Deep bit depths (the
-reference's `_ssd_table_deep`), the weighted-prediction search
-(`wp_apply`) and the fractional-refine tables are not ported yet: asking
-for them raises NotImplementedError.
+which the wrappers run only for tensors on the CPU. Deep bit depths (9-14
+bits, int16 planes) take the deep SSD table (the reference's
+`_ssd_table_deep`: samples shifted to at most 10 bits and centred, the
+correlation as three int8 ones) and the deep window energies, both CUDA
+kernels too, and the rate term scaled by `_lam_shift`. The
+weighted-prediction search (`wp_apply`) and the fractional-refine tables
+are not ported yet: asking for them raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -92,28 +95,50 @@ def _box_energies(p2: torch.Tensor, size: int) -> torch.Tensor:
     return box.to(torch.int32)
 
 
-def box_energies(roi: torch.Tensor, size: int) -> torch.Tensor:
-    """Box-sum plane of the centred squares (roi - 128)^2 of a uint8 plane:
+def deep_centring(depth: int):
+    """(shift, mid) of the deep search at `depth` bits: samples are shifted
+    to at most 10 effective bits and centred, (a >> shift) - mid."""
+    shift = max(0, depth - 10)
+    return shift, 1 << (depth - shift - 1)
+
+
+def box_energies(roi: torch.Tensor, size: int, shift: int = 0,
+                 mid: int = 128) -> torch.Tensor:
+    """Box-sum plane of the centred squares ((roi >> shift) - mid)^2:
     [H - size + 1, W - size + 1] int32. On the card one kernel launch
-    (size 8, 16 or 32), whose output rows are strided to a multiple of 4
-    int32 for its 16-byte stores; its plain version is `_box_energies` of
-    the squares."""
+    (size 8, 16 or 32): a uint8 plane (shift 0, mid 128) takes the 8-bit
+    kernel, an int16 plane of 9-14-bit samples the deep one. Its output rows
+    are strided to a multiple of 4 int32 for its 16-byte stores; its plain
+    version is `_box_energies` of the squares."""
     if roi.device.type == "cpu":
-        rc = roi.to(torch.int32) - 128
+        rc = (roi.to(torch.int32) >> shift) - mid
         return _box_energies(rc * rc, size)
-    runtime.require(roi, torch.uint8, "box_energies roi", contiguous=False)
+    deep = roi.dtype == torch.int16
+    name = "box_energies_deep" if deep else "box_energies"
+    runtime.require(roi, torch.int16 if deep else torch.uint8, name + " roi",
+                    contiguous=False)
     if roi.stride(1) != 1 or min(roi.shape) < size or size not in (8, 16,
                                                                    32):
-        raise ValueError("box_energies: bad roi shape or layout, or a size "
-                         "other than 8, 16 and 32")
+        raise ValueError(f"{name}: bad roi shape or layout, or a size other "
+                         "than 8, 16 and 32")
+    if not deep and (shift, mid) != (0, 128):
+        raise ValueError("box_energies: a uint8 plane is centred on 128")
+    if deep and not (0 <= shift <= 4 and 0 < mid <= 512):
+        raise ValueError("box_energies_deep: shift and mid of 9-14-bit "
+                         "samples")
     out_h, out_w = roi.shape[0] - size + 1, roi.shape[1] - size + 1
     box = torch.empty_strided((out_h, out_w), (-(-out_w // 4) * 4, 1),
                               dtype=torch.int32, device=roi.device)
     lib = runtime.kernel_lib("me_ssd")
-    rc = lib.hevc_box_energies(roi.data_ptr(), roi.stride(0), out_h, out_w,
-                               size, box.data_ptr(), box.stride(0),
-                               runtime.stream_of(roi))
-    runtime.check(lib, rc, "box_energies")
+    if deep:
+        rc = lib.hevc_box_energies_deep(
+            roi.data_ptr(), roi.stride(0), out_h, out_w, size, shift, mid,
+            box.data_ptr(), box.stride(0), runtime.stream_of(roi))
+    else:
+        rc = lib.hevc_box_energies(roi.data_ptr(), roi.stride(0), out_h,
+                                   out_w, size, box.data_ptr(),
+                                   box.stride(0), runtime.stream_of(roi))
+    runtime.check(lib, rc, name)
     return box
 
 
@@ -144,7 +169,7 @@ def _corr_plain(areas: torch.Tensor, blks: torch.Tensor,
     """corr[n, dy, dx] = sum_{i,j} areas[n, dy+i, dx+j] * blks[n, i, j]
     as one batched matrix product per block row i: the window rows
     areas[n, i:i+nyx, :] times the Toeplitz matrix T[x, dx] = blks[n, i,
-    x-dx]. float64 holds every partial sum exactly (|corr| < 2^25)."""
+    x-dx]. float64 holds every partial sum exactly (|corr| < 2^29)."""
     n, size, _ = blks.shape
     aw = areas.shape[1]
     dev = areas.device
@@ -161,14 +186,15 @@ def _corr_plain(areas: torch.Tensor, blks: torch.Tensor,
     return corr.to(torch.int32)
 
 
-def _ssd_table_plain(roi, orig, *, size, r, ny, nx):
-    """Plain version of the SSD-table kernel (same decomposition, the
-    correlation as exact float64 matrix products)."""
+def _ssd_table_plain(roi, orig, *, size, r, ny, nx, shift=0, mid=128):
+    """Plain version of the SSD-table kernels (same decomposition, the
+    correlation as exact float64 matrix products) of the samples centred
+    as (a >> shift) - mid."""
     aw = 2 * r + size
     nyx = 2 * r + 1
     n = ny * nx
-    b = _blocks(orig, size, ny, nx) - 128
-    rc = roi.to(torch.int32) - 128
+    b = (_blocks(orig, size, ny, nx) >> shift) - mid
+    rc = (roi.to(torch.int32) >> shift) - mid
     areas = rc.unfold(0, aw, size).unfold(1, aw, size).reshape(n, aw, aw)
     corr = _corr_plain(areas, b, nyx)
     win = _window_energies(rc * rc, size=size, r=r, ny=ny, nx=nx)
@@ -208,6 +234,59 @@ def _ssd_table(roi, orig, *, size, r, ny, nx):
                              runtime.stream_of(roi))
     runtime.check(lib, rc_, "ssd_table")
     return out
+
+
+def _ssd_table_deep_plain(roi, orig, *, size, r, ny, nx, depth):
+    """Plain version of the deep SSD-table kernel: the correlation of the
+    centred samples directly (|corr| <= 1024 * 512^2 < 2^29, exact in
+    float64), which is what the reference's three int8 correlations of the
+    hi/lo split add up to."""
+    shift, mid = deep_centring(depth)
+    return _ssd_table_plain(roi, orig, size=size, r=r, ny=ny, nx=nx,
+                            shift=shift, mid=mid)
+
+
+def _ssd_table_deep(roi, orig, *, size, r, ny, nx, depth):
+    """SSD tables [ny*nx, nyx, nyx] int32 of deep samples, as _ssd_table's
+    layout: roi and orig int16 planes of 9-14-bit samples (roi may be a
+    strided view into the padded reference). On the card the deep window
+    energies, then the deep SSD-table kernel."""
+    if roi.device.type == "cpu":
+        return _ssd_table_deep_plain(roi, orig, size=size, r=r, ny=ny,
+                                     nx=nx, depth=depth)
+    aw = 2 * r + size
+    nyx = 2 * r + 1
+    if size not in (8, 16, 32):
+        raise ValueError(f"ssd_table_deep: block size {size} is not 8, 16 "
+                         "or 32 (half of an HEVC CTU)")
+    if not 8 < depth <= 14:
+        raise ValueError(f"ssd_table_deep: {depth}-bit samples (9-14 bits "
+                         "travel as int16)")
+    runtime.require(roi, torch.int16, "ssd_table_deep roi", contiguous=False)
+    runtime.require(orig, torch.int16, "ssd_table_deep orig",
+                    contiguous=False)
+    if (roi.stride(1) != 1 or orig.stride(1) != 1
+            or roi.shape[0] < (ny - 1) * size + aw
+            or roi.shape[1] < (nx - 1) * size + aw
+            or orig.shape[0] < ny * size or orig.shape[1] < nx * size):
+        raise ValueError("ssd_table_deep: bad roi/orig shape or layout")
+    shift, mid = deep_centring(depth)
+    box = box_energies(roi, size, shift, mid)
+    out = torch.empty((ny * nx, nyx, nyx), dtype=torch.int32,
+                      device=roi.device)
+    lib = runtime.kernel_lib("me_ssd")
+    rc_ = lib.hevc_ssd_table_deep(
+        roi.data_ptr(), roi.stride(0), orig.data_ptr(), orig.stride(0),
+        box.data_ptr(), box.stride(0), out.data_ptr(), size, r, ny, nx,
+        shift, mid, runtime.stream_of(roi))
+    runtime.check(lib, rc_, "ssd_table_deep")
+    return out
+
+
+def _lam_shift(depth: int) -> int:
+    """Rate-term scale: SSD at effective depth ds = min(depth, 10) is
+    2^(2*(ds-8)) times the 8-bit-equivalent distortion."""
+    return 2 * (min(depth, 10) - 8) if depth > 8 else 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -282,15 +361,19 @@ def _argmin_two_pass(ssd, bits0, lam_q8, *, r, ny, nx, size):
 def me_idx_frame(orig, ref_padded, bits0, lam_q8, *, size, r, ny, nx, pad,
                  depth=8, wpv=None):
     """One frame's two-pass SSD argmin indices [ny*nx] int32 for one
-    reference: orig [H, W] and ref_padded [H+2pad, W+2pad] uint8 tensors."""
+    reference: orig [H, W] and ref_padded [H+2pad, W+2pad] tensors, uint8
+    at 8 bits, int16 at 9-14 bits (me_dtype)."""
     if wpv is not None:
         raise _not_ported("the weighted-prediction search (wp_apply)")
-    if depth > 8:
-        raise _not_ported("the deep-bit-depth search (_ssd_table_deep)")
     aw = 2 * r + size
     roi = ref_padded[pad - r:pad - r + (ny - 1) * size + aw,
                      pad - r:pad - r + (nx - 1) * size + aw]
-    ssd = _ssd_table(roi, orig, size=size, r=r, ny=ny, nx=nx)
+    if depth > 8:
+        ssd = _ssd_table_deep(roi, orig, size=size, r=r, ny=ny, nx=nx,
+                              depth=depth)
+        lam_q8 = lam_q8 << _lam_shift(depth)
+    else:
+        ssd = _ssd_table(roi, orig, size=size, r=r, ny=ny, nx=nx)
     return _argmin_two_pass(ssd, bits0, lam_q8, r=r, ny=ny, nx=nx,
                             size=size)
 
@@ -412,12 +495,6 @@ def me_grid_ssd(orig_y, ref_padded_y, size: int, r: int, lam_fp: int, *,
 # ---------------------------------------------------------------------
 # numpy twin (the reference's host path; bit-identical decisions)
 # ---------------------------------------------------------------------
-def _lam_shift(depth: int) -> int:
-    """Rate-term scale: SSD at effective depth ds = min(depth, 10) is
-    2^(2*(ds-8)) times the 8-bit-equivalent distortion."""
-    return 2 * (min(depth, 10) - 8) if depth > 8 else 0
-
-
 def _ssd_np(areas, blks, size, nyx, mid=128):
     """Exact SSD tables on the host, via the same decomposition as the
     device path (window energy + block energy - 2*correlation). The
@@ -451,8 +528,7 @@ def me_grid_ssd_np(orig_y, ref_padded_y, size: int, r: int, lam_fp: int, *,
     nyx = 2 * r + 1
     n = ny * nx
     aw = 2 * r + size
-    shift = max(0, depth - 10) if depth > 8 else 0
-    mid = 1 << (depth - shift - 1) if depth > 8 else 128
+    shift, mid = deep_centring(depth) if depth > 8 else (0, 128)
     blks = ((orig_y[:ny * size, :nx * size].astype(np.int64) >> shift)
             .reshape(ny, size, nx, size).transpose(0, 2, 1, 3)
             .reshape(n, size, size))

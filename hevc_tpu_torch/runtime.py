@@ -37,6 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # kernel name -> launches since the last reset()
 launches: dict = {"sad_table": 0, "sad_cost_argmin": 0, "full_search": 0,
                   "ssd_table": 0, "argmin_two_pass": 0, "box_energies": 0,
+                  "ssd_table_deep": 0, "box_energies_deep": 0,
                   "sad_table_planes": 0, "me_planes": 0, "intra_screen": 0}
 
 _P = ctypes.c_void_p
@@ -61,6 +62,9 @@ _SIGNATURES = {
                            _P],
         "hevc_argmin_two_pass": [_P, _P, _I, _I, _I, _I, _I, _P, _P],
         "hevc_box_energies": [_P, _L, _I, _I, _I, _P, _L, _P],
+        "hevc_ssd_table_deep": [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _I,
+                                _I, _I, _P],
+        "hevc_box_energies_deep": [_P, _L, _I, _I, _I, _I, _I, _P, _L, _P],
     },
     "intra_screen": {
         "hevc_intra_screen": [_P, _L, _I, _I, _P, _I, _I, _I, _I, _I, _P,

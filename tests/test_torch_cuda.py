@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from test_torch_helpers import (LDP_CFG, SAD_KINDS, SAD_SHAPES,
-                                SEARCH_KINDS, SEARCH_LAMS, cost_table,
-                                moving_frames, planes_case,
+                                SEARCH_KINDS, SEARCH_LAMS, at_depth,
+                                cost_table, moving_frames, planes_case,
                                 sad_range_case, search_case)
 
 pytestmark = pytest.mark.cuda
@@ -220,6 +220,120 @@ def test_box_energies_match_plain(dev, size, h, w, kind):
     _eq(got, me_ssd._box_energies(rc * rc, size))
 
 
+def _deep_planes(kind, h, w, bit_depth, seed):
+    """orig and reference int16 planes of bit_depth-bit samples, each a view
+    that starts at an odd column of a larger plane: random over the whole
+    range, the range's two ends against each other, or moving texture with
+    flat patches (many offsets tie)."""
+    rng = np.random.default_rng(seed)
+    top = (1 << bit_depth) - 1
+    if kind == "random":
+        planes = [rng.integers(0, top + 1, (h, w)) for _ in range(2)]
+    elif kind == "zeros_vs_max":
+        planes = [np.zeros((h, w)), np.full((h, w), top)]
+    else:
+        f = moving_frames(2, w, h, seed=seed)
+        planes = [f[1][0].astype(np.int64) << (bit_depth - 8),
+                  f[0][0].astype(np.int64) << (bit_depth - 8)]
+        for p in planes:
+            p[:h // 2, :w // 3] = top // 3
+    out = []
+    for p in planes:
+        big = np.zeros((h + 3, w + 4), np.int16)
+        big[2:2 + h, 1:1 + w] = p
+        out.append((big, h, w))
+    return out
+
+
+def _deep_view(dev, big, h, w):
+    return torch.from_numpy(big).to(dev)[2:2 + h, 1:1 + w]
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros_vs_max", "flat"])
+@pytest.mark.parametrize("bit_depth", [9, 10, 12, 14])
+@pytest.mark.parametrize("r", [1, 3, 16, 64])
+@pytest.mark.parametrize("size", [8, 16, 32])
+def test_ssd_table_deep_matches_plain(dev, size, r, bit_depth, kind):
+    """The deep SSD table (three int8 tensor-core products, its box plane
+    from box_energies_deep) equals its plain version at every block size,
+    on a 3 x 5 grid (odd ny and nx, offsets no multiple of the tiles),
+    with orig and roi strided views into larger planes, at 9 to 14 bits,
+    at the samples' extremes and on flat patches."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    ny, nx = 3, 5
+    orig, ref = _deep_planes(kind, ny * size + 2, nx * size + 3, bit_depth,
+                             seed=size * 100 + r + bit_depth)
+    o = _deep_view(dev, *orig)
+    refp = me_ssd.pad_ref_device(_deep_view(dev, *ref), PAD)
+    aw = 2 * r + size
+    roi = refp[PAD - r:PAD - r + (ny - 1) * size + aw,
+               PAD - r:PAD - r + (nx - 1) * size + aw]
+    kw = dict(size=size, r=r, ny=ny, nx=nx, depth=bit_depth)
+    before = dict(runtime.launches)
+    got = me_ssd._ssd_table_deep(roi, o, **kw)
+    for k in ("ssd_table_deep", "box_energies_deep"):
+        assert runtime.launches[k] == before[k] + 1
+    for k in ("ssd_table", "box_energies"):
+        assert runtime.launches[k] == before[k]
+    _eq(got, me_ssd._ssd_table_deep_plain(roi, o, **kw))
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros_vs_max", "flat"])
+@pytest.mark.parametrize("bit_depth", [10, 12, 14])
+@pytest.mark.parametrize("size,h,w", [(8, 8, 8), (16, 47, 301), (32, 200, 133),
+                                      (8, 38, 250), (32, 79, 260),
+                                      (16, 1104, 1952), (32, 1184, 2048)])
+def test_box_energies_deep_match_plain(dev, size, h, w, bit_depth, kind):
+    """The deep window-energy kernel equals the torch integral image of the
+    centred squares on int16 views that start at an odd column, on planes
+    whose output is no multiple of its band, strip or 4 columns, and at the
+    1080p shapes of both grids."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    plane, _ = _deep_planes(kind, h, w, bit_depth, seed=h + w + bit_depth)
+    p = _deep_view(dev, *plane)
+    shift, mid = me_ssd.deep_centring(bit_depth)
+    before = runtime.launches["box_energies_deep"]
+    got = me_ssd.box_energies(p, size, shift, mid)
+    assert runtime.launches["box_energies_deep"] == before + 1
+    assert got.shape == (h - size + 1, w - size + 1)
+    rc = (p.to(torch.int32) >> shift) - mid
+    _eq(got, me_ssd._box_energies(rc * rc, size))
+
+
+def test_deep_kernels_reject_bad_arguments(dev):
+    """No fallback on the card: a wrong dtype, layout, size, depth or
+    centring raises before any launch."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    size, r, ny, nx = 16, 4, 2, 3
+    aw = 2 * r + size
+    roi = torch.zeros(((ny - 1) * size + aw, (nx - 1) * size + aw),
+                      dtype=torch.int16, device=dev)
+    orig = torch.zeros((ny * size, nx * size), dtype=torch.int16, device=dev)
+    kw = dict(size=size, r=r, ny=ny, nx=nx, depth=10)
+    before = dict(runtime.launches)
+    bad = [
+        lambda: me_ssd._ssd_table_deep(roi.to(torch.int32), orig, **kw),
+        lambda: me_ssd._ssd_table_deep(roi, orig.to(torch.uint8), **kw),
+        lambda: me_ssd._ssd_table_deep(roi[1:], orig, **kw),
+        lambda: me_ssd._ssd_table_deep(roi, orig[:, 1:], **kw),
+        lambda: me_ssd._ssd_table_deep(roi.t(), orig, **kw),
+        lambda: me_ssd._ssd_table_deep(roi, orig, **dict(kw, depth=16)),
+        lambda: me_ssd._ssd_table_deep(roi, orig, **dict(kw, size=4)),
+        lambda: me_ssd.box_energies(roi.to(torch.int32), size, 0, 512),
+        lambda: me_ssd.box_energies(roi.to(torch.uint8), size, 0, 512),
+        lambda: me_ssd.box_energies(roi, size, 5, 512),
+        lambda: me_ssd.box_energies(roi, 12, 0, 512),
+        lambda: me_ssd.box_energies(roi[:, ::2], size, 0, 512),
+    ]
+    for call in bad:
+        with pytest.raises(ValueError):
+            call()
+    assert runtime.launches == before
+
+
 @pytest.mark.parametrize("local_only", [False, True])
 @pytest.mark.parametrize("table", ["random", "flat", "huge"])
 @pytest.mark.parametrize("r,ny,nx", [(1, 1, 1), (3, 3, 5), (3, 9, 2),
@@ -366,6 +480,34 @@ def test_intra_screen_matches_plain(dev, h, w, bit_depth, kind):
         for a, b in zip(got, exp):
             assert a.dtype == b.dtype and a.shape == b.shape
             _eq(a, b)
+
+
+@pytest.mark.parametrize("cfg_name,bit_depth", [
+    ("encoder_randomaccess_main10.cfg", 10),
+    ("encoder_lowdelay_main.cfg", 8)])
+def test_b_encode_on_card_matches_cpu(dev, cfg_name, bit_depth):
+    """Random-access Main10 (the deep search kernels) and low-delay B, 9
+    frames each: identical bytes on the card and on the CPU."""
+    import os
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.encoder.top import EncoderTop
+    from hevc_tpu_torch.io.cfg import EncoderConfig, parse_cfg_file
+    from test_torch_helpers import CFG_DIR
+    frames = [[at_depth(p, bit_depth) for p in f]
+              for f in moving_frames(9, 128, 80, seed=8)]
+
+    def run(device):
+        cfg = parse_cfg_file(os.path.join(CFG_DIR, cfg_name),
+                             EncoderConfig())
+        cfg.width, cfg.height, cfg.frames_to_encode = 128, 80, 9
+        cfg.input_bit_depth = bit_depth
+        enc = EncoderTop(cfg, device=device)
+        return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+    before = dict(runtime.launches)
+    got = run("cuda")
+    key = "ssd_table_deep" if bit_depth > 8 else "ssd_table"
+    assert runtime.launches[key] > before[key]
+    assert got == run("cpu")
 
 
 def test_encode_on_card_matches_cpu(dev):

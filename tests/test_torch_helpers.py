@@ -109,6 +109,16 @@ def moving_frames(n, w, h, chroma=420, seed=5):
     return out
 
 
+def at_depth(p, depth):
+    """A uint8 plane at `depth` bits: itself at 8, above it int16 samples
+    s << k | s & (2^k - 1), k = depth - 8 (the low bits repeat the high
+    ones, as chip_smoke.py writes its clips)."""
+    k = depth - 8
+    if not k:
+        return p
+    return ((p.astype(np.int16) << k) | (p & ((1 << k) - 1))).astype(np.int16)
+
+
 # Sample ranges the SAD-table kernel branches on: [0, 255] takes its 8-bit
 # path, 10-14 bits its float path at 32 x 32 (h * w * max < 2^24), 16 bits
 # at 32 x 32 and anything negative its int32 path; "wrap" sums overflow

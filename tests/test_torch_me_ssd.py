@@ -144,6 +144,3 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError):
             me_ssd.me_grids_multi2_async(orig, [ref], 32, 16, 8, LAM_FP,
                                          pad=PAD, **kw)
-    with pytest.raises(NotImplementedError):
-        me_ssd.me_grids_multi2_async(orig.to(torch.int16), [ref], 32, 16, 8,
-                                     LAM_FP, pad=PAD, depth=10)

@@ -16,7 +16,8 @@ Phases, each printed on its own line with its seconds:
      search of the fallback path is held to its plain version on all four
      outputs with per-block predictors; the SAD kernels also on 10-bit
      samples (the 8-bit inputs << 2); the 8-bit bound divides by the
-     published VABSDIFF4 rate, and a probe of it is printed beside;
+     published VABSDIFF4 rate, and a probe of it is printed beside, as is
+     a probe of the int8 mma.sync rate the deep SSD kernel runs on;
   3. encode 1920x1080 8-bit low-delay P through the CLI entry point on
      the card, with the launch counters reset just before it: 13 frames,
      the IDR and twelve P frames, so that the GOP's reference deltas
@@ -44,15 +45,17 @@ Phases, each printed on its own line with its seconds:
      and on the CPU: each pair of streams must match;
   8. decode every stream of phases 3-7c with the port's own decoder: every
      picture's MD5 SEI must check and the picture counts must match;
-  9. encode 4 LDP and 2 all-intra 1080p frames under torch.profiler: the
-     device time of every kernel and the device's busy share of each
-     encode's wall time (phases 3 and 6 keep their unprofiled frames/s);
+  9. encode 4 LDP, 2 all-intra and 9 RA-Main10 1080p frames under
+     torch.profiler: the device time of every kernel and the device's busy
+     share of each encode's wall time (phases 3, 6 and 7b keep their
+     unprofiled frames/s);
  10. report the card.
 Phase 2 also holds the intra prescreen kernel to its plain version on
 1080p planes (8-bit, 10-bit, and one with flat regions where many modes
 tie), holds the deep SSD table and deep window energies to theirs on the
 1080p planes at 10 and 12 bits (and a 10-bit plane with flat regions), and
-times the reference padding beside F.pad(mode="replicate").
+times the reference padding (one F.pad(mode="replicate")) beside the index
+gathers it replaced, on uint8 and int16 planes.
 The input is synthetic moving texture made from --seed with numpy.
 The last two lines are a JSON object with every kernel's numbers and the
 result {"ok": true, "device": {...}}. Any failed phase exits non-zero.
@@ -410,6 +413,7 @@ def check_kernels(frames, seed, results):
     check_intra_screen(frames, results)
     check_deep_kernels(frames, results)
 
+    mma_probe(dev)
     rate = vabsdiff4_peak(dev)
     vabsdiff4_probe(dev, rate)
     blks, areas = check_sad_tables(orig, refp, lam_fp, rate, seed, results)
@@ -418,32 +422,32 @@ def check_kernels(frames, seed, results):
 
 
 def time_torch_ops(frames, dev):
-    """Time of the main path's device work that is torch tensor ops, not a
-    kernel of this package (the reference ran it as XLA programs): the
-    reference padding (_pad_edge_dev), and as its yardstick one
-    F.pad(mode="replicate") call on the uint8 plane, where torch accepts
-    uint8 there (its result must equal _pad_edge_dev's). Logged only."""
+    """Time of the main path's device work that is a torch call, not a
+    kernel of this package (the reference ran it as an XLA program): the
+    reference padding (_pad_edge_dev, one F.pad(mode="replicate")) on the
+    uint8 plane and on its 10-bit int16 copy, each held to the edge
+    extension by two index gathers. Logged only."""
     from hevc_tpu_torch.ops import me_ssd
+
+    def gathers(p):
+        rows = torch.arange(-PAD, p.shape[0] + PAD, device=dev).clamp_(
+            0, p.shape[0] - 1)
+        cols = torch.arange(-PAD, p.shape[1] + PAD, device=dev).clamp_(
+            0, p.shape[1] - 1)
+        return p.index_select(0, rows).index_select(1, cols)
     h, w = frames[0].shape
-    plane = torch.from_numpy(frames[0]).to(dev)
-    ms = cuda_ms(lambda: me_ssd._pad_edge_dev(plane, PAD), 20)
-    nbytes = plane.numel() + (h + 2 * PAD) * (w + 2 * PAD)
-    bms, by = bound_ms(nbytes, 0, SCALAR32_OPS)
-    log(f"  _pad_edge_dev {w}x{h} pad {PAD}: {ms:.4f} ms, bound "
-        f"{bms:.4f} ms ({by})")
-    fn = lambda: torch.nn.functional.pad(  # noqa: E731
-        plane[None, None], (PAD,) * 4, mode="replicate")
-    try:
-        got = fn()
-    except (RuntimeError, NotImplementedError) as e:
-        log(f"  F.pad(mode='replicate') does not accept a uint8 plane on "
-            f"the card: {str(e).splitlines()[0]}")
-        return
-    if not torch.equal(got[0, 0], me_ssd._pad_edge_dev(plane, PAD)):
-        raise AssertionError("F.pad(mode='replicate') disagrees with "
-                             "_pad_edge_dev")
-    log(f"  library F.pad(mode='replicate') on the uint8 plane: "
-        f"{cuda_ms(fn, 20):.4f} ms, equal to _pad_edge_dev's")
+    for plane in (torch.from_numpy(frames[0]).to(dev),
+                  torch.from_numpy(deep_plane(frames[0], 10)).to(dev)):
+        if not torch.equal(me_ssd._pad_edge_dev(plane, PAD), gathers(plane)):
+            raise AssertionError(f"_pad_edge_dev disagrees with the index "
+                                 f"gathers on the {plane.dtype} plane")
+        ms = cuda_ms(lambda: me_ssd._pad_edge_dev(plane, PAD), 20)
+        nbytes = (plane.numel() + (h + 2 * PAD) * (w + 2 * PAD)) * \
+            plane.element_size()
+        bms, by = bound_ms(nbytes, 0, SCALAR32_OPS)
+        log(f"  _pad_edge_dev {w}x{h} pad {PAD}, {plane.dtype}: {ms:.4f} ms "
+            f"(the index gathers {cuda_ms(lambda: gathers(plane), 20):.4f}), "
+            f"bound {bms:.4f} ms ({by}); equal")
 
 
 def check_intra_screen(frames, results):
@@ -525,9 +529,11 @@ def check_deep_kernels(frames, results):
     and at 10 bits with flat 64x64 patches in both planes (many offsets
     tie). Exact equality. The 10-bit planes are timed: host-paced and
     queued, plain version, the ssd kernel alone (its box plane
-    precomputed), and the library yardsticks, timed only: cuDNN's float32
-    grouped convolution of the centred samples (the correlation) and
-    avg_pool2d of the float32 squares, whose sums above 2^24 are not
+    precomputed) and its staging probe (the same launch without its
+    products), with the multiply-adds the kernel issues against the
+    unpadded count, and the library yardsticks, timed only: cuDNN's
+    float32 grouped convolution of the centred samples (the correlation)
+    and avg_pool2d of the float32 squares, whose sums above 2^24 are not
     exact."""
     from hevc_tpu_torch import runtime
     from hevc_tpu_torch.ops import me_ssd
@@ -543,7 +549,7 @@ def check_deep_kernels(frames, results):
     names = ("ssd_table_deep", "box_energies_deep")
     acc = {k: {"ms": 0.0, "q_ms": 0.0, "plain_ms": 0.0, "bytes_b": 0.0,
                "ops_b": 0.0, "err": 0, "lib": 0.0} for k in names}
-    alone_ms = 0.0
+    alone_ms = stage_ms = 0.0
     lib = runtime.kernel_lib("me_ssd")
     torch.backends.cudnn.allow_tf32 = False
     for case, (fr, bd) in cases.items():
@@ -613,10 +619,25 @@ def check_deep_kernels(frames, results):
                     orig.stride(0), box_k.data_ptr(), box_k.stride(0),
                     ssd_k.data_ptr(), size, r, ny, nx, shift, mid, stream))
             t_alone = cuda_ms(alone, 20, queued=True)
+
+            def stage():  # the staging probe: the launch without products
+                rcs.append(lib.hevc_ssd_table_deep_stage(
+                    roi.data_ptr(), roi.stride(0), orig.data_ptr(),
+                    orig.stride(0), box_k.data_ptr(), box_k.stride(0),
+                    ssd_k.data_ptr(), size, r, ny, nx, shift, mid, stream))
+            t_stage = cuda_ms(stage, 20, queued=True)
             if any(rcs):
                 raise AssertionError(f"ssd_table_deep kernel alone: launch "
                                      f"error {max(rcs)}")
             alone_ms += t_alone
+            stage_ms += t_stage
+            padded = me_ssd.deep_padded_macs(size, r, n)
+            log(f"  ssd_table_deep {grid}: kernel alone {t_alone:.4f} ms, "
+                f"its staging alone (probe) {t_stage:.4f} ms, products "
+                f"(the difference) {t_alone - t_stage:.4f} ms; "
+                f"{padded / 1e9:.2f} G multiply-adds a product issued, "
+                f"{padded / (n * nyx * nyx * size * size):.3f}x the "
+                f"unpadded")
             a["plain_ms"] += cuda_ms(
                 lambda: me_ssd._ssd_table_deep_plain(roi, orig, **kw), 2)
             a["bytes_b"] += (roi.numel() * 2 + n * size * size * 2
@@ -656,7 +677,33 @@ def check_deep_kernels(frames, results):
             f"{a['ops_b'] / 1e9:.1f} G ops, {a['bytes_b'] / 1e6:.1f} MB) "
             f"library_ms {a['lib']:.4f}")
     log(f"  ssd_table_deep kernel alone (10-bit, both grids, box plane "
-        f"precomputed, queued): {alone_ms:.4f} ms")
+        f"precomputed, queued): {alone_ms:.4f} ms; staging probe "
+        f"{stage_ms:.4f} ms, products {alone_ms - stage_ms:.4f} ms")
+
+
+def mma_probe(dev):
+    """The int8 mma.sync rate of the card, printed only: the probe kernel
+    of csrc/me_ssd.cu (8 independent m16n8k32 u8 x s8 chains a warp, on
+    register operands, 2 and 4 thread blocks of 8 warps an SM), timed
+    queued, against the published 1979 TOP/s dense int8 peak."""
+    from hevc_tpu_torch import runtime
+    lib = runtime.kernel_lib("me_ssd")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    iters = 4096
+    for per_sm in (2, 4):
+        blocks = per_sm * sms
+        out = torch.empty(blocks * 256, dtype=torch.int32, device=dev)
+        rcs = []
+        ms = cuda_ms(lambda: rcs.append(lib.hevc_mma_probe(
+            out.data_ptr(), blocks, iters, runtime.stream_of(out))), 5,
+            queued=True)
+        if any(rcs):
+            raise AssertionError(f"mma probe: launch error {max(rcs)}")
+        ops = blocks * 8 * iters * 8 * 16 * 8 * 32 * 2.0
+        log(f"  mma.sync m16n8k32 u8 x s8 probe, {8 * per_sm} warps an SM: "
+            f"{ops / ms / 1e9:.1f} T ops/s, "
+            f"{100 * ops / ms / 1e9 / (INT8_TC_OPS / 1e12):.1f}% of the "
+            f"1979 T dense int8 peak ({ms:.4f} ms a call)")
 
 
 def vabsdiff4_peak(dev):
@@ -978,19 +1025,21 @@ def check_planes(orig, refp, lam_fp, rate, blks, areas, results):
 
 
 def profile_encodes(tmp, seed):
-    """Phase 9: a 4-frame LDP and a 2-picture all-intra 1080p encode under
+    """Phase 9: a 4-frame LDP, a 2-picture all-intra and a 9-frame
+    RA-Main10 (the IDR and one GOP of eight, 10-bit) 1080p encode under
     torch.profiler with CUDA activity. Logs, per encode, every device
     activity by name (device ms in all, count) and the device's busy share
     of the encode's wall time (the union of the device intervals over the
     host clock around the encode)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for name, n, cfg in (("prof_ldp", 4, LDP_CFG),
-                         ("prof_intra", 2, INTRA_CFG)):
+    for name, n, cfg, bd in (("prof_ldp", 4, LDP_CFG, 8),
+                             ("prof_intra", 2, INTRA_CFG, 8),
+                             ("prof_ra10", N_RA, RA10_CFG, 10)):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             _, secs, _, _ = encode(tmp, name, 1920, 1080, n, seed, "cuda",
-                                   cfg=cfg)
+                                   cfg=cfg, bit_depth=bd)
         del streams[name]
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if not dev:

@@ -44,19 +44,46 @@
 // a' = 128 hi + lo, lo = ((a' + 64) & 127) - 64 in [-64, 63], hi in [-4, 4],
 // so that the correlation is three int8 ones: c_hh, c_ll and c_ss of
 // s = hi + lo, combined as corr = (c_hh << 14) + ((c_ss - c_hh - c_ll) << 7)
-// + c_ll, which the kernel forms as 16256 c_hh + 128 c_ss - 127 c_ll in
-// unsigned (wrapping) 32-bit arithmetic: the same bits as XLA's int32. It is
-// ssd_table's design run for three products. The int16 window is read once
-// and staged as three int8 windows (hi, lo, s; |s| <= 68), each with its B
-// words. Per work item the three products run one after the other into one
-// set of accumulators, each folded into the combined correlation before the
-// next. What bounds it: operations, three times ssd_table's (at 1080p
-// 202 G int8 operations a reference on the 32-grid at r = 64, 13.4 G on the
-// 16-grid at r = 16, unpadded). Shared memory: three parts of ssd_table's
-// layout (148 KB for 32 x 32 at r = 64); with the combined correlation
-// beside the accumulators (181 registers at 32 x 32) one thread block of
-// eight warps runs an SM.
-//
+// + c_ll = 16256 c_hh + 128 c_ss - 127 c_ll, formed in unsigned (wrapping)
+// 32-bit arithmetic: the same bits as XLA's int32. What bounds it:
+// operations (at 1080p 202 G int8 operations a reference on the 32-grid at
+// r = 64, 13.4 G on the 16-grid at r = 16, unpadded). The design:
+// - Offsets in m16 tiles of dy by n8 tiles of dx. An n8 tile's band of taps
+//   (8 + size - 1 window columns) lies in H = 3 (32x32) or 2 (16x16, 8x8)
+//   16-byte k segments from the 16-byte column at or below its first
+//   offset, and a k-step of m16n8k32 takes its two halves from any two of
+//   them, across block rows (ldmatrix takes a row address from each lane):
+//   1.59x the unpadded multiply-adds at 32x32, r = 64, and 2.82x at 16x16,
+//   r = 16 (whole 32-byte k-steps of one block row would issue 2.77x and
+//   4.2x).
+// - The B fragments come from a table of B words per part and block row,
+//   the word at every byte offset of the zero-extended row: for a k half
+//   (segment k, n8 tile of parity par) lane (g, t) reads word
+//   16 k - 8 par + 4 t - g + 15; a row's six words serve every n8 tile.
+// - Only the hi and lo windows are staged, biased to unsigned bytes
+//   hi' = hi + 4 in [0, 8] and lo' = lo + 64 in [0, 127], so that
+//   s' = hi' + lo' <= 135 is one 32-bit add a register (no carry between
+//   bytes of real samples) and the three products, u8 x s8, share every
+//   A load. The bias adds 576 sum(b) to the fold: a constant of the block,
+//   taken out in the epilogue beside sum(b^2). Window bytes past aw are
+//   never written: they meet zero taps or feed offsets past nyx.
+// - At r = 64 and 16 the last m16 tile holds one row of offsets; it is
+//   packed: its 16 rows take (that row, 16-column group) pairs, two n8
+//   tiles wide (each lane's ldmatrix row address is its own).
+// - A warp's work item is an m16 tile by NV n8 tiles (4 at 32x32, 6 below)
+//   with the three accumulator sets; each block row's A segments
+//   (ldmatrix.x4) and B words are loaded just before the k-steps that use
+//   them. The item body is a template on its count of live n8 tiles, so a
+//   short item (the last group, the packed tile) loads only what it uses
+//   and no tile loop tests a runtime count.
+// - Staging: the block's taps are loaded first, the int16 window with
+//   16-byte loads (4 in flight a thread) split in registers, the B words
+//   made by a shuffle and funnel shifts; one barrier. Two thread blocks of
+//   eight warps share an SM at 32x32 (121 registers, 82.7 KB of shared
+//   memory at r = 64), so one block's staging runs under the other's
+//   products; five blocks of three warps at 16x16 (125 registers, 18.1 KB
+//   at r = 16). No spills (the -Xptxas -v log of the build).
+
 // argmin_two_pass replaces `_argmin_two_pass` (LOCAL_W = 8):
 //   pass 1: argmin of the 3x3-neighbourhood sum of
 //           cost1 = ssd + ((lam * bits0) >> 8) (zero outside the grid);
@@ -369,186 +396,473 @@ int launch_ssd_table(const void* roi, long long roi_stride, const void* orig,
 
 // ------------------------------------------------------- ssd_table_deep
 
-constexpr int kDeepParts = 3;  // the hi, lo and s = hi + lo samples
-
-// A centred deep sample c = 128 hi + lo as the int8 bytes of hi, lo and
-// s = hi + lo (hi in [-4, 4], lo in [-64, 63]; exact for |c| <= 512).
-__device__ __forceinline__ void split128(int c, uint32_t (&b)[kDeepParts]) {
-  const int lo = ((c + 64) & 127) - 64, hi = (c - lo) >> 7;
-  b[0] = static_cast<uint32_t>(hi) & 0xffu;
-  b[1] = static_cast<uint32_t>(lo) & 0xffu;
-  b[2] = static_cast<uint32_t>(hi + lo) & 0xffu;
-}
-
-// The weight of product p (0: hi.hi, 1: lo.lo, 2: s.s) in
-// corr = 16256 c_hh - 127 c_ll + 128 c_ss (mod 2^32).
-__device__ __forceinline__ uint32_t deep_weight(int p) {
-  return p == 0 ? 16256u : (p == 1 ? 0u - 127u : 128u);
-}
-
+// Tiling of the deep kernel per block size (see the header comment):
+// H 16-byte k segments a block row and n8 tile, RP block rows a pass of
+// the k loop (RP * H even: whole k-steps), NV n8 tiles a work item, WARPS
+// warps a thread block, MINB thread blocks an SM (so at most
+// 65536 / (MINB * WARPS * 32) registers a thread).
 template <int SIZE>
-__global__ void __launch_bounds__(kSsdMaxWarps * 32, 1)
+struct DeepTile;
+template <>
+struct DeepTile<32> {
+  static constexpr int H = 3, RP = 2, NV = 4, WARPS = 8, MINB = 2;
+};
+template <>
+struct DeepTile<16> {
+  static constexpr int H = 2, RP = 1, NV = 6, WARPS = 3, MINB = 5;
+};
+template <>
+struct DeepTile<8> {
+  static constexpr int H = 2, RP = 1, NV = 6, WARPS = 3, MINB = 5;
+};
+constexpr int kDeepParts = 3;  // hi, lo and s = hi + lo
+
+// Shared-memory layout of one search block of ssd_table_deep: the biased
+// hi and lo windows [rows][stride] (uint8) and the B words [3][SIZE][BW].
+template <int SIZE>
+struct DeepLayout {
+  using T = DeepTile<SIZE>;
+  static constexpr int H = T::H, NV = T::NV;
+  static constexpr int SEGS = NV / 2 + H - 1;  // k segments of a full item
+  static constexpr int BW = 16 * (H - 1) + 28;  // B words a block row
+  int nyx, aw, mt_n, nv_n, ng_n, tail, rows, stride;
+  bool packed;
+  __host__ __device__ explicit DeepLayout(int r) {
+    nyx = 2 * r + 1;
+    aw = 2 * r + SIZE;
+    mt_n = (nyx + 15) / 16;
+    nv_n = (nyx + 7) / 8;
+    ng_n = (nv_n + NV - 1) / NV;
+    // the last m16 tile holds `tail` rows of offsets; when tail rows of
+    // mt_n 16-column groups fit its 16 rows (and save n8 tiles), it is
+    // packed: row m is offset row m0 + m / mt_n at columns
+    // 16 (m % mt_n) .. + 15, two n8 tiles wide
+    tail = nyx - 16 * (mt_n - 1);
+    packed = tail * mt_n <= 16 && nv_n > 2;
+    rows = mt_n * 16 + SIZE - 1;
+    // the end of the columns an item reads (an item with `live` n8 tiles
+    // reads ((live - 1) >> 1) + H k segments): the last group, a full
+    // group, the packed tile (two n8 tiles)
+    int cols = (ng_n - 1) * 8 * NV +
+               16 * (((nv_n - (ng_n - 1) * NV - 1) >> 1) + H);
+    if (ng_n > 1 && (ng_n - 2) * 8 * NV + 16 * SEGS > cols)
+      cols = (ng_n - 2) * 8 * NV + 16 * SEGS;
+    if (packed && 16 * (mt_n - 1 + H) > cols) cols = 16 * (mt_n - 1 + H);
+    stride = (cols + 15) & ~15;
+    if (((stride >> 4) & 1) == 0) stride += 16;  // odd multiple of 16 B
+  }
+  __host__ __device__ size_t window_bytes() const {
+    return static_cast<size_t>(rows) * stride;
+  }
+  __host__ __device__ size_t words_offset() const {
+    return 2 * window_bytes();
+  }
+  __host__ __device__ size_t bytes() const {  // a multiple of 16
+    return words_offset() + kDeepParts * SIZE * BW * 4;
+  }
+  // m16 tiles of one offset row a tile row, and the work items
+  __host__ __device__ int mt_rows() const { return packed ? mt_n - 1 : mt_n; }
+  __host__ __device__ int items() const { return mt_rows() * ng_n + packed; }
+};
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t addr, uint32_t& a0,
+                                            uint32_t& a1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(a0), "=r"(a1)
+               : "r"(addr));
+}
+
+// c += A(16x32, u8, row) * B(32x8, s8, col), exact in s32
+__device__ __forceinline__ void mma_u8s8(int (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Two window samples (int16 halves of w) -> their biased bytes
+// e = (a >> shift) + 576 - mid in [64, 1087]: lo' = e & 127 and
+// hi' = e >> 7, as two 16-bit lanes each.
+__device__ __forceinline__ void split_pair(uint32_t w, int shift,
+                                           uint32_t bias2, uint32_t& hi,
+                                           uint32_t& lo) {
+  const uint32_t e = ((w >> shift) & ((0xffffu >> shift) * 0x10001u)) + bias2;
+  lo = e & 0x007f007fu;
+  hi = (e >> 7) & 0x000f000fu;
+}
+
+// The products and epilogue of one work item with LIVE n8 tiles (LIVE a
+// compile-time count, so that an item with fewer tiles than NV loads only
+// the k segments and B words it uses and holds only its accumulators).
+// a_hi, a_lo: this lane's ldmatrix address of segment 0 of the hi and lo
+// windows at block row 0; wb: its B-word pointer; e0, e1: the offset row
+// and first column of tile rows g and g + 8; b2c: sum(b^2) + 1152 sum(b);
+// o, bwin: the block's table and box plane.
+template <int SIZE, int LIVE>
+__device__ __forceinline__ void deep_item(uint32_t a_hi, uint32_t a_lo,
+                                          int S, const uint32_t* wb,
+                                          int2 e0, int2 e1, int nyx, int t,
+                                          uint32_t b2c, int* o,
+                                          const int* bwin,
+                                          long long box_stride) {
+  using T = DeepTile<SIZE>;
+  constexpr int H = T::H, RP = T::RP, BW = DeepLayout<SIZE>::BW;
+  constexpr int KP = RP * H / 2;          // mma k-steps a pass and n8 tile
+  constexpr int NSEG = ((LIVE - 1) >> 1) + H;  // k segments the tiles read
+  int acc[LIVE][kDeepParts][4] = {};
+#pragma unroll 1
+  for (int i = 0; i < SIZE; i += RP) {
+    // block row by block row: its A segments and B words, then the k-steps
+    // whose second half lies in it (a k-step may take its first half from
+    // the row before, whose registers stay live till then)
+    uint32_t ah[RP][NSEG][2], al[RP][NSEG][2];
+    uint32_t bw[RP][2][H][kDeepParts];
+#pragma unroll
+    for (int rr = 0; rr < RP; ++rr) {
+      // A: the k segments 0 .. NSEG - 1 of the tile rows' window rows
+      // + i + rr, in pairs (ldmatrix.x4) and an odd last one (x2)
+#pragma unroll
+      for (int u = 0; u < NSEG; u += 2) {
+        const uint32_t off = (i + rr) * S + 16 * u;
+        if (u + 1 < NSEG) {
+          ldmatrix_x4(a_hi + off, ah[rr][u][0], ah[rr][u][1],
+                      ah[rr][u + 1][0], ah[rr][u + 1][1]);
+          ldmatrix_x4(a_lo + off, al[rr][u][0], al[rr][u][1],
+                      al[rr][u + 1][0], al[rr][u + 1][1]);
+        } else {  // lanes 0-15 give the rows
+          ldmatrix_x2(a_hi + off, ah[rr][u][0], ah[rr][u][1]);
+          ldmatrix_x2(a_lo + off, al[rr][u][0], al[rr][u][1]);
+        }
+      }
+      // n8 tiles of one parity at a time, with that parity's B words of
+      // this row (the same for every tile of the parity)
+#pragma unroll
+      for (int par = 0; par < 2 && par < LIVE; ++par) {
+#pragma unroll
+        for (int k = 0; k < H; ++k)
+#pragma unroll
+          for (int p = 0; p < kDeepParts; ++p)
+            bw[rr][par][k][p] =
+                wb[(p * SIZE + i + rr) * BW + 16 * k - 8 * par];
+#pragma unroll
+        for (int v = par; v < LIVE; v += 2) {
+          const int u0 = v >> 1;
+#pragma unroll
+          for (int kp = 0; kp < KP; ++kp) {
+            // the two k segments (row i + r, segment u0 + k) of a step
+            const int r0 = 2 * kp / H, k0 = 2 * kp % H;
+            const int r1 = (2 * kp + 1) / H, k1 = (2 * kp + 1) % H;
+            if (r1 != rr) continue;
+            const uint32_t h0 = ah[r0][u0 + k0][0], h1 = ah[r0][u0 + k0][1];
+            const uint32_t h2 = ah[r1][u0 + k1][0], h3 = ah[r1][u0 + k1][1];
+            const uint32_t l0 = al[r0][u0 + k0][0], l1 = al[r0][u0 + k0][1];
+            const uint32_t l2 = al[r1][u0 + k1][0], l3 = al[r1][u0 + k1][1];
+            const uint32_t(&b0)[kDeepParts] = bw[r0][par][k0];
+            const uint32_t(&b1)[kDeepParts] = bw[r1][par][k1];
+            mma_u8s8(acc[v][0], h0, h1, h2, h3, b0[0], b1[0]);
+            mma_u8s8(acc[v][1], l0, l1, l2, l3, b0[1], b1[1]);
+            // s' = hi' + lo' <= 135 a byte: no carry between bytes
+            mma_u8s8(acc[v][2], h0 + l0, h1 + l1, h2 + l2, h3 + l3, b0[2],
+                     b1[2]);
+          }
+        }
+      }
+    }
+  }
+  // epilogue: c0, c1 at (tile row g, cols 2t, 2t+1); c2, c3 at g + 8.
+  // corr = fold - 576 sum(b), so ssd = win + b2 + 1152 sum(b) - 2 fold
+#pragma unroll
+  for (int v = 0; v < LIVE; ++v) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int2 e = c < 2 ? e0 : e1;
+      const int dy = e.x, dx = e.y + 8 * v + 2 * t + (c & 1);
+      if (dy < nyx && dx < nyx) {
+        const uint32_t fold = 16256u * static_cast<uint32_t>(acc[v][0][c]) -
+                              127u * static_cast<uint32_t>(acc[v][1][c]) +
+                              128u * static_cast<uint32_t>(acc[v][2][c]);
+        o[dy * nyx + dx] = static_cast<int>(
+            static_cast<uint32_t>(bwin[dy * box_stride + dx]) + b2c -
+            2u * fold);
+      }
+    }
+  }
+}
+
+// deep_item<SIZE, live> for a runtime live in 1 .. LIVE.
+template <int SIZE, int LIVE, typename... Args>
+__device__ __forceinline__ void deep_item_of(int live, Args... args) {
+  if constexpr (LIVE > 1) {
+    if (live < LIVE) {
+      deep_item_of<SIZE, LIVE - 1>(live, args...);
+      return;
+    }
+  }
+  deep_item<SIZE, LIVE>(args...);
+}
+
+template <int SIZE, bool STAGE_ONLY>
+__global__ void __launch_bounds__(DeepTile<SIZE>::WARPS * 32,
+                                  DeepTile<SIZE>::MINB)
 ssd_table_deep_kernel(const int16_t* __restrict__ roi, long long roi_stride,
                       const int16_t* __restrict__ orig, long long orig_stride,
                       const int* __restrict__ box, long long box_stride,
                       int* __restrict__ out, int r, int nx, int shift,
                       int mid) {
-  using L = SsdLayout<SIZE>;
-  constexpr int TN = L::TN, NS = TN / 8, BW = L::BW;
+  using L = DeepLayout<SIZE>;
+  using T = DeepTile<SIZE>;
+  constexpr int NV = L::NV, BW = L::BW;
+  static_assert(NV % 2 == 0, "an item starts at a 16-byte column");
+  static_assert(T::RP * T::H % 2 == 0 && SIZE % T::RP == 0,
+                "whole k-steps a pass");
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int b2_warp[kSsdMaxWarps];
+  __shared__ int red[T::WARPS][2];  // sum(b^2), sum(b) per warp
   const L lay(r);
   const int nyx = lay.nyx, aw = lay.aw, S = lay.stride;
-  // three parts of ssd_table's layout, h = 0 for hi, 1 for lo, 2 for s: the
-  // int8 window [rows][S], the B words [SIZE][BW], the block [SIZE][SIZE]
-  const size_t part = lay.bytes();
-  uint32_t* sw32[kDeepParts];
-  uint32_t* swb[kDeepParts];
-  uint8_t* sb[kDeepParts];
-#pragma unroll
-  for (int h = 0; h < kDeepParts; ++h) {
-    sw32[h] = reinterpret_cast<uint32_t*>(smem + h * part);
-    swb[h] = reinterpret_cast<uint32_t*>(smem + h * part + lay.window_bytes());
-    sb[h] = reinterpret_cast<uint8_t*>(swb[h] + SIZE * BW);
-  }
+  constexpr int TB = T::WARPS * 32;         // threads (blockDim.x)
+  constexpr int WB = 4;                     // window chunks in flight a thread
+  constexpr int NBT = (SIZE * 16 + TB - 1) / TB;  // B-word tasks a thread
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const uint32_t bias2 = static_cast<uint32_t>(576 - mid) * 0x10001u;
+
+  // staging. B words: word w of (part, row i) holds taps w - 15 .. w - 12
+  // of the zero-extended block row. Lane (i, q) of a 16-lane row group
+  // reads taps 4q - 15 .. 4q - 12 (their loads issued first), splits them
+  // into three words, takes lane q + 1's by a shuffle and writes words
+  // 4q .. 4q + 3 by funnel shifts. The window: 8-sample chunks split into
+  // the biased hi and lo bytes (16-byte loads, WB in flight a thread,
+  // where the plane allows).
   const int n = blockIdx.x;
   const int by = n / nx, bx = n - (n / nx) * nx;
-
-  // the window, split as it is staged; zero past aw in every part
-  const int16_t* ga = roi + (static_cast<long long>(by) * SIZE) * roi_stride +
+  const int16_t* gb = orig + (static_cast<long long>(by) * SIZE) * orig_stride +
                       static_cast<long long>(bx) * SIZE;
-  const int s4 = S >> 2;
-  for (int k = threadIdx.x; k < lay.rows * s4; k += blockDim.x) {
-    const int y = k / s4, x = (k - y * s4) << 2;
-    uint32_t w[kDeepParts] = {0, 0, 0};
-    if (y < aw) {
-      const int16_t* row = ga + y * roi_stride;
+  int tap[NBT][4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (x + q < aw) {
-          uint32_t b[kDeepParts];
-          split128((static_cast<int>(row[x + q]) >> shift) - mid, b);
+  for (int it = 0; it < NBT; ++it) {
+    const int k = tid + it * TB, i = k >> 4, q = k & 15;
 #pragma unroll
-          for (int h = 0; h < kDeepParts; ++h) w[h] |= b[h] << (8 * q);
+    for (int u = 0; u < 4; ++u) {
+      const int j = 4 * q - 15 + u;
+      tap[it][u] = k < SIZE * 16 && j >= 0 && j < SIZE
+                       ? static_cast<int>(gb[i * orig_stride + j])
+                       : -1;
+    }
+  }
+  {
+    // only the aw x aw samples are staged: window bytes past aw (rows
+    // and columns) meet zero B taps or feed offsets past nyx, never
+    // stored, so they may hold anything
+    const int16_t* ga = roi +
+                        (static_cast<long long>(by) * SIZE) * roi_stride +
+                        static_cast<long long>(bx) * SIZE;
+    const bool aligned = ((reinterpret_cast<uintptr_t>(ga) |
+                           static_cast<uintptr_t>(roi_stride * 2)) &
+                          15) == 0;
+    const int cwa = (aw + 7) >> 3;  // 8-sample chunks of a window row
+    const int ys = TB / cwa, cs = TB - ys * cwa;  // a step of TB chunks
+    int y = tid / cwa, c = tid - y * cwa;         // this thread's chunk
+    uint2* hw = reinterpret_cast<uint2*>(smem);
+    uint2* lw = reinterpret_cast<uint2*>(smem + lay.window_bytes());
+    while (y < aw) {
+      int yc[WB], xc[WB];
+      int4 v[WB];
+      bool vec[WB];
+#pragma unroll
+      for (int u = 0; u < WB; ++u) {
+        yc[u] = y;
+        xc[u] = c << 3;
+        vec[u] = aligned && y < aw && xc[u] + 8 <= aw;
+        if (vec[u])
+          v[u] = __ldg(
+              reinterpret_cast<const int4*>(ga + y * roi_stride + xc[u]));
+        c += cs;
+        y += ys + (c >= cwa);
+        if (c >= cwa) c -= cwa;
+      }
+#pragma unroll
+      for (int u = 0; u < WB; ++u) {
+        if (yc[u] >= aw) break;
+        uint32_t hp[4], lp[4];
+        if (vec[u]) {
+          split_pair(static_cast<uint32_t>(v[u].x), shift, bias2, hp[0],
+                     lp[0]);
+          split_pair(static_cast<uint32_t>(v[u].y), shift, bias2, hp[1],
+                     lp[1]);
+          split_pair(static_cast<uint32_t>(v[u].z), shift, bias2, hp[2],
+                     lp[2]);
+          split_pair(static_cast<uint32_t>(v[u].w), shift, bias2, hp[3],
+                     lp[3]);
+        } else {  // the unaligned plane, the row's last partial chunk
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            hp[q] = lp[q] = 0;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int xx = xc[u] + 2 * q + h;
+              if (xx < aw) {
+                const uint32_t e = static_cast<uint32_t>(
+                    (static_cast<int>(ga[yc[u] * roi_stride + xx]) >>
+                     shift) +
+                    576 - mid);
+                lp[q] |= (e & 127u) << (16 * h);
+                hp[q] |= (e >> 7) << (16 * h);
+              }
+            }
+          }
         }
+        const int k = yc[u] * (S >> 3) + (xc[u] >> 3);
+        hw[k] = make_uint2(__byte_perm(hp[0], hp[1], 0x6420),
+                           __byte_perm(hp[2], hp[3], 0x6420));
+        lw[k] = make_uint2(__byte_perm(lp[0], lp[1], 0x6420),
+                           __byte_perm(lp[2], lp[3], 0x6420));
       }
     }
-#pragma unroll
-    for (int h = 0; h < kDeepParts; ++h) sw32[h][k] = w[h];
   }
-  const int16_t* gb = orig +
-                      (static_cast<long long>(by) * SIZE) * orig_stride +
-                      static_cast<long long>(bx) * SIZE;
-  int b2 = 0;
-  for (int k = threadIdx.x; k < SIZE * SIZE; k += blockDim.x) {
-    const int y = k / SIZE, x = k - (k / SIZE) * SIZE;
-    const int v = (static_cast<int>(gb[y * orig_stride + x]) >> shift) - mid;
-    uint32_t b[kDeepParts];
-    split128(v, b);
+  int b2 = 0, bs = 0;
+  uint32_t* wb_out = reinterpret_cast<uint32_t*>(smem + lay.words_offset());
 #pragma unroll
-    for (int h = 0; h < kDeepParts; ++h) sb[h][k] = static_cast<uint8_t>(b[h]);
-    b2 += v * v;
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    b2 += __shfl_xor_sync(0xffffffffu, b2, off);
-  if ((threadIdx.x & 31) == 0) b2_warp[threadIdx.x >> 5] = b2;
-  __syncthreads();
-  // B words of every part, as in ssd_table
-  for (int k = threadIdx.x; k < kDeepParts * SIZE * BW; k += blockDim.x) {
-    const int h = k / (SIZE * BW), kk = k - h * (SIZE * BW);
-    const int i = kk / BW, o = kk - (kk / BW) * BW - (TN - 1);
-    uint32_t w = 0;
+  for (int it = 0; it < NBT; ++it) {
+    const int k = tid + it * TB, i = k >> 4, q = k & 15;
+    if (k >= SIZE * 16) break;  // whole warps (SIZE * 16 % 32 == 0)
+    uint32_t w[kDeepParts] = {0, 0, 0};
 #pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (o + q >= 0 && o + q < SIZE)
-        w |= static_cast<uint32_t>(sb[h][i * SIZE + o + q]) << (8 * q);
-    swb[h][kk] = w;
-  }
-  b2 = 0;
-  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) b2 += b2_warp[w];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int a_col = (lane >> 4) * 16;
-  uint32_t sw_base[kDeepParts];
-#pragma unroll
-  for (int h = 0; h < kDeepParts; ++h)
-    sw_base[h] = static_cast<uint32_t>(__cvta_generic_to_shared(sw32[h]));
-  int* o = out + static_cast<long long>(n) * nyx * nyx;
-  const int* bw = box + (static_cast<long long>(by) * SIZE) * box_stride +
-                  static_cast<long long>(bx) * SIZE;
-  const int items = lay.items();
-  for (int item = threadIdx.x >> 5; item < items; item += blockDim.x >> 5) {
-    const int mg = item / lay.nt_n, nt = item - mg * lay.nt_n;
-    const int m0 = mg * kMTiles * 16, dx0 = nt * TN;
-    const int mcount = min(kMTiles, lay.mt_n - mg * kMTiles);
-    uint32_t corr[kMTiles][NS][4];
-#pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-      for (int ns = 0; ns < NS; ++ns)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) corr[mt][ns][c] = 0;
-    const int a_off = (m0 + a_row) * S + dx0 + a_col;
+    for (int u = 0; u < 4; ++u) {
+      if (tap[it][u] >= 0) {
+        const int c = (tap[it][u] >> shift) - mid;
+        const int lo = ((c + 64) & 127) - 64, hi = (c - lo) >> 7;
+        w[0] |= (static_cast<uint32_t>(hi) & 0xffu) << (8 * u);
+        w[1] |= (static_cast<uint32_t>(lo) & 0xffu) << (8 * u);
+        w[2] |= (static_cast<uint32_t>(hi + lo) & 0xffu) << (8 * u);
+        b2 += c * c;
+        bs += c;
+      }
+    }
 #pragma unroll
     for (int p = 0; p < kDeepParts; ++p) {
-      int acc[kMTiles][NS][4];
-#pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-        for (int ns = 0; ns < NS; ++ns)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[mt][ns][c] = 0;
-      correlate_item<SIZE, 2>(acc, sw_base[p] + a_off, swb[p], S, mcount, g,
-                              t);
-      const uint32_t wgt = deep_weight(p);
-#pragma unroll
-      for (int mt = 0; mt < kMTiles; ++mt)
-#pragma unroll
-        for (int ns = 0; ns < NS; ++ns)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            corr[mt][ns][c] += wgt * static_cast<uint32_t>(acc[mt][ns][c]);
+      const uint32_t next = __shfl_down_sync(0xffffffffu, w[p], 1);
+      if (4 * q < BW)
+        *reinterpret_cast<uint4*>(wb_out + (p * SIZE + i) * BW + 4 * q) =
+            make_uint4(w[p], __funnelshift_r(w[p], next, 8),
+                       __funnelshift_r(w[p], next, 16),
+                       __funnelshift_r(w[p], next, 24));
     }
-    // epilogue: ssd = win + sum(b'^2) - 2 corr, wrapping
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    b2 += __shfl_xor_sync(0xffffffffu, b2, off);
+    bs += __shfl_xor_sync(0xffffffffu, bs, off);
+  }
+  if (lane == 0) {
+    red[warp][0] = b2;
+    red[warp][1] = bs;
+  }
+  __syncthreads();
+  if constexpr (STAGE_ONLY) {  // the staging probe: one word a thread out
+    const uint32_t* sw = reinterpret_cast<const uint32_t*>(smem);
+    if (tid < nyx * nyx)
+      out[static_cast<long long>(n) * nyx * nyx + tid] = static_cast<int>(
+          sw[tid] ^ reinterpret_cast<const uint32_t*>(
+                        smem + lay.words_offset())[tid]) +
+          red[0][0];
+    return;
+  }
+
+  // products: item = (m16 tile, group of NV n8 tiles); the groups with
+  // fewer live n8 tiles, then the packed tile, last
+  const int g = lane >> 2, t = lane & 3;
+  // this lane's ldmatrix row and segment within a pair of k segments
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_seg = lane >> 4;
+  int b2s = 0, bss = 0;
 #pragma unroll
-    for (int mt = 0; mt < kMTiles; ++mt) {
-      if (mt < mcount) {
-#pragma unroll
-        for (int ns = 0; ns < NS; ++ns)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            const int dy = m0 + mt * 16 + g + 8 * (c >> 1);
-            const int dx = dx0 + 8 * ns + 2 * t + (c & 1);
-            if (dy < nyx && dx < nyx)
-              o[dy * nyx + dx] = static_cast<int>(
-                  static_cast<uint32_t>(bw[dy * box_stride + dx]) +
-                  static_cast<uint32_t>(b2) - 2u * corr[mt][ns][c]);
-          }
+  for (int w = 0; w < T::WARPS; ++w) {
+    b2s += red[w][0];
+    bss += red[w][1];
+  }
+  const uint32_t b2c =
+      static_cast<uint32_t>(b2s) + 1152u * static_cast<uint32_t>(bss);
+  const int mtr = lay.mt_rows();
+  const int full = (lay.ng_n - 1) * mtr;  // items of full groups
+  for (int item = warp; item < lay.items(); item += T::WARPS) {
+    const bool pk = item >= mtr * lay.ng_n;  // the packed tile
+    const bool last = item >= full;
+    const int mt = pk ? lay.mt_n - 1 : last ? item - full
+                                            : item / (lay.ng_n - 1);
+    const int ng = pk || last ? lay.ng_n - 1 : item - mt * (lay.ng_n - 1);
+    const int m0 = mt * 16, dx0 = pk ? 0 : ng * 8 * NV;
+    const int live = pk ? 2 : min(NV, lay.nv_n - ng * NV);  // in the table
+    // tile row m: offset row dy and first column cx (rows of the packed
+    // tile past its tail * mt_n get dy = nyx: computed, never stored)
+    auto tile_row = [&](int m, int& dy, int& cx) {
+      if (pk) {
+        const int q = m / lay.mt_n;
+        dy = m0 + min(q, lay.tail);
+        cx = 16 * (m - q * lay.mt_n);
+      } else {
+        dy = m0 + m;
+        cx = dx0;
       }
-    }
+    };
+    int a_dy, a_cx, g_dy, g_cx, h_dy, h_cx;
+    tile_row(a_row, a_dy, a_cx);
+    tile_row(g, g_dy, g_cx);
+    tile_row(g + 8, h_dy, h_cx);
+    const uint32_t a_hi =
+        static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + a_dy * S +
+        a_cx + 16 * a_seg;
+    // B word (part p, row i, parity par, segment k) of this lane: taps
+    // 16 k - 8 par + 4 t - g .. + 3, at word 16 k - 8 par + 4 t - g + 15
+    deep_item_of<SIZE, NV>(
+        live, a_hi, a_hi + static_cast<uint32_t>(lay.window_bytes()), S,
+        reinterpret_cast<const uint32_t*>(smem + lay.words_offset()) +
+            (4 * t - g + 15),
+        make_int2(g_dy, g_cx), make_int2(h_dy, h_cx), nyx, t, b2c,
+        out + static_cast<long long>(n) * nyx * nyx,
+        box + (static_cast<long long>(by) * SIZE) * box_stride +
+            static_cast<long long>(bx) * SIZE,
+        box_stride);
   }
 }
 
-template <int SIZE>
+template <int SIZE, bool STAGE_ONLY>
 int launch_ssd_table_deep(const void* roi, long long roi_stride,
                           const void* orig, long long orig_stride,
                           const void* box, long long box_stride, void* out,
                           int r, int ny, int nx, int shift, int mid,
                           cudaStream_t stream) {
-  const SsdLayout<SIZE> lay(r);
-  const size_t smem = kDeepParts * lay.bytes();
-  cudaError_t e = allow_smem(ssd_table_deep_kernel<SIZE>, smem);
+  const DeepLayout<SIZE> lay(r);
+  const size_t smem = lay.bytes();
+  cudaError_t e = allow_smem(ssd_table_deep_kernel<SIZE, STAGE_ONLY>, smem);
   if (e != cudaSuccess) return e;
-  const int warps = std::min(kSsdMaxWarps, lay.items());
   if (ny > 0 && nx > 0)
-    ssd_table_deep_kernel<SIZE><<<ny * nx, warps * 32, smem, stream>>>(
-        static_cast<const int16_t*>(roi), roi_stride,
-        static_cast<const int16_t*>(orig), orig_stride,
-        static_cast<const int*>(box), box_stride, static_cast<int*>(out), r,
-        nx, shift, mid);
+    ssd_table_deep_kernel<SIZE, STAGE_ONLY>
+        <<<ny * nx, DeepTile<SIZE>::WARPS * 32, smem, stream>>>(
+            static_cast<const int16_t*>(roi), roi_stride,
+            static_cast<const int16_t*>(orig), orig_stride,
+            static_cast<const int*>(box), box_stride, static_cast<int*>(out),
+            r, nx, shift, mid);
   return cudaGetLastError();
+}
+
+// The mma.sync rate probe (chip_smoke.py times it): each warp runs 8
+// independent chains of m16n8k32 u8 x s8 products on register operands,
+// the deep kernel's instruction without its loads.
+__global__ void __launch_bounds__(256) mma_probe_kernel(int* __restrict__ out,
+                                                         int iters) {
+  int acc[8][4] = {};
+  const uint32_t a = threadIdx.x * 2654435761u, b = blockIdx.x * 40503u;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      mma_u8s8(acc[k], a + k, a ^ k, a + 2 * k, a, b + it, b ^ it);
+  }
+  int r = 0;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    r += acc[k][0] + acc[k][1] + acc[k][2] + acc[k][3];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = r;
 }
 
 // ---------------------------------------------------------- box_energies
@@ -969,6 +1283,16 @@ extern "C" int hevc_ssd_table(const void* roi, long long roi_stride,
   }
 }
 
+// The mma.sync probe: blocks thread blocks of 256 threads, each warp
+// 8 * iters m16n8k32 products; out holds blocks * 256 int32.
+extern "C" int hevc_mma_probe(void* out, int blocks, int iters,
+                              void* stream) {
+  if (blocks > 0)
+    mma_probe_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<int*>(out), iters);
+  return cudaGetLastError();
+}
+
 // ssd: [ny * nx, 2r+1, 2r+1] int32, contiguous and 16-byte aligned.
 extern "C" int hevc_argmin_two_pass(const void* ssd, const void* bits0,
                                     int lam_q8, int r, int ny, int nx,
@@ -1003,6 +1327,31 @@ extern "C" int hevc_box_energies_deep(const void* roi, long long roi_stride,
                                      shift, mid, box, box_stride, stream);
 }
 
+template <bool STAGE_ONLY>
+int ssd_table_deep_entry(const void* roi, long long roi_stride,
+                         const void* orig, long long orig_stride,
+                         const void* box, long long box_stride, void* out,
+                         int size, int r, int ny, int nx, int shift, int mid,
+                         void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (size) {
+    case 8:
+      return launch_ssd_table_deep<8, STAGE_ONLY>(
+          roi, roi_stride, orig, orig_stride, box, box_stride, out, r, ny, nx,
+          shift, mid, s);
+    case 16:
+      return launch_ssd_table_deep<16, STAGE_ONLY>(
+          roi, roi_stride, orig, orig_stride, box, box_stride, out, r, ny, nx,
+          shift, mid, s);
+    case 32:
+      return launch_ssd_table_deep<32, STAGE_ONLY>(
+          roi, roi_stride, orig, orig_stride, box, box_stride, out, r, ny, nx,
+          shift, mid, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // ssd_table of int16 planes (row strides in samples) for 9-14-bit samples,
 // each centred as (a >> shift) - mid; box is box_energies_deep's plane.
 extern "C" int hevc_ssd_table_deep(const void* roi, long long roi_stride,
@@ -1010,21 +1359,22 @@ extern "C" int hevc_ssd_table_deep(const void* roi, long long roi_stride,
                                    const void* box, long long box_stride,
                                    void* out, int size, int r, int ny, int nx,
                                    int shift, int mid, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (size) {
-    case 8:
-      return launch_ssd_table_deep<8>(roi, roi_stride, orig, orig_stride, box,
-                                      box_stride, out, r, ny, nx, shift, mid,
-                                      s);
-    case 16:
-      return launch_ssd_table_deep<16>(roi, roi_stride, orig, orig_stride,
-                                       box, box_stride, out, r, ny, nx, shift,
-                                       mid, s);
-    case 32:
-      return launch_ssd_table_deep<32>(roi, roi_stride, orig, orig_stride,
-                                       box, box_stride, out, r, ny, nx, shift,
-                                       mid, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return ssd_table_deep_entry<false>(roi, roi_stride, orig, orig_stride, box,
+                                     box_stride, out, size, r, ny, nx, shift,
+                                     mid, stream);
+}
+
+// The staging probe of ssd_table_deep (chip_smoke.py times it): the same
+// launch, which stages its windows and B words and returns; it writes
+// garbage into the first words of each table.
+extern "C" int hevc_ssd_table_deep_stage(const void* roi, long long roi_stride,
+                                         const void* orig,
+                                         long long orig_stride,
+                                         const void* box, long long box_stride,
+                                         void* out, int size, int r, int ny,
+                                         int nx, int shift, int mid,
+                                         void* stream) {
+  return ssd_table_deep_entry<true>(roi, roi_stride, orig, orig_stride, box,
+                                    box_stride, out, size, r, ny, nx, shift,
+                                    mid, stream);
 }

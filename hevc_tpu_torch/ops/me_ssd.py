@@ -70,11 +70,11 @@ def _not_ported(what: str):
 
 def _pad_edge_dev(plane: torch.Tensor, pad: int) -> torch.Tensor:
     """Edge extension by `pad` samples on every side (jnp.pad mode="edge")
-    as two index gathers: exact for every dtype."""
-    h, w = plane.shape
-    rows = torch.arange(-pad, h + pad, device=plane.device).clamp_(0, h - 1)
-    cols = torch.arange(-pad, w + pad, device=plane.device).clamp_(0, w - 1)
-    return plane.index_select(0, rows).index_select(1, cols)
+    as one replicate pad: it only copies samples, so it is exact for every
+    dtype, and a pad wider than the plane repeats its edge as jnp.pad's
+    does."""
+    return torch.nn.functional.pad(plane[None, None], (pad,) * 4,
+                                   mode="replicate")[0, 0]
 
 
 def pad_ref_device(plane_dev: torch.Tensor, pad: int) -> torch.Tensor:
@@ -244,6 +244,28 @@ def _ssd_table_deep_plain(roi, orig, *, size, r, ny, nx, depth):
     shift, mid = deep_centring(depth)
     return _ssd_table_plain(roi, orig, size=size, r=r, ny=ny, nx=nx,
                             shift=shift, mid=mid)
+
+
+# The deep SSD kernel's tiling (csrc/me_ssd.cu DeepTile): block size ->
+# (H, RP, NV): the 16-byte k segments of a block row that one n8 tile of
+# offsets reads, the block rows of a pass of its k loop, and the n8 tiles
+# of a work item.
+DEEP_TILES = {32: (3, 2, 4), 16: (2, 1, 6), 8: (2, 1, 6)}
+
+
+def deep_padded_macs(size: int, r: int, nblocks: int) -> int:
+    """Multiply-adds the deep kernel issues for one of its three products
+    over nblocks search blocks, padding included: m16 x n8 tiles of
+    offsets (16-row tiles of dy by the 8-column tiles that hold a table
+    column, the last 16-row tile packed into two n8 tiles where it holds
+    few rows), each H k segments of 16 a block row (the unpadded count is
+    nblocks * (2r + 1)^2 * size^2)."""
+    h = DEEP_TILES[size][0]
+    nyx = 2 * r + 1
+    mt_n, nv_n = -(-nyx // 16), -(-nyx // 8)
+    packed = (nyx - 16 * (mt_n - 1)) * mt_n <= 16 and nv_n > 2
+    tiles = (mt_n - 1) * nv_n + 2 if packed else mt_n * nv_n
+    return nblocks * tiles * 16 * 8 * size * h * 16
 
 
 def _ssd_table_deep(roi, orig, *, size, r, ny, nx, depth):

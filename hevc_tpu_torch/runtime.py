@@ -64,7 +64,10 @@ _SIGNATURES = {
         "hevc_box_energies": [_P, _L, _I, _I, _I, _P, _L, _P],
         "hevc_ssd_table_deep": [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _I,
                                 _I, _I, _P],
+        "hevc_ssd_table_deep_stage": [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I,
+                                      _I, _I, _I, _P],
         "hevc_box_energies_deep": [_P, _L, _I, _I, _I, _I, _I, _P, _L, _P],
+        "hevc_mma_probe": [_P, _I, _I, _P],
     },
     "intra_screen": {
         "hevc_intra_screen": [_P, _L, _I, _I, _P, _I, _I, _I, _I, _I, _P,

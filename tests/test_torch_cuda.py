@@ -279,6 +279,67 @@ def test_ssd_table_deep_matches_plain(dev, size, r, bit_depth, kind):
     _eq(got, me_ssd._ssd_table_deep_plain(roi, o, **kw))
 
 
+def _check_deep_table(dev, size, r, ny, nx, bit_depth, kind, seed):
+    """One _ssd_table_deep call on strided int16 views: one launch of the
+    deep kernel (and of box_energies_deep, none of the 8-bit kernels) and
+    a table equal to the plain version's."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    orig, ref = _deep_planes(kind, ny * size + 2, nx * size + 3, bit_depth,
+                             seed=seed)
+    o = _deep_view(dev, *orig)
+    refp = me_ssd.pad_ref_device(_deep_view(dev, *ref), PAD)
+    aw = 2 * r + size
+    roi = refp[PAD - r:PAD - r + (ny - 1) * size + aw,
+               PAD - r:PAD - r + (nx - 1) * size + aw]
+    kw = dict(size=size, r=r, ny=ny, nx=nx, depth=bit_depth)
+    before = dict(runtime.launches)
+    got = me_ssd._ssd_table_deep(roi, o, **kw)
+    for k in ("ssd_table_deep", "box_energies_deep"):
+        assert runtime.launches[k] == before[k] + 1
+    for k in ("ssd_table", "box_energies"):
+        assert runtime.launches[k] == before[k]
+    _eq(got, me_ssd._ssd_table_deep_plain(roi, o, **kw))
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros_vs_max"])
+@pytest.mark.parametrize("r", [7, 8, 15, 23, 24, 31, 32])
+@pytest.mark.parametrize("size", [8, 16, 32])
+def test_ssd_table_deep_tile_edges(dev, size, r, kind):
+    """r on the deep kernel's tile edges at 14 bits (the largest |corr|):
+    2r + 1 one short of a 16-row tile (7, 15, 23, 31) or one past it, where
+    the last tile is packed (8, 24, 32), and at the ends of the groups of
+    n8 tiles (15, 23, 31 and 16 at 32x32, 23 and 24 at 16x16)."""
+    _check_deep_table(dev, size, r, 3, 5, 14, kind, seed=size * 7 + r)
+
+
+@pytest.mark.parametrize("kind,bit_depth", [("random", 10), ("random", 14),
+                                            ("zeros_vs_max", 14)])
+@pytest.mark.parametrize("size,r,ny,nx", [(32, 64, 17, 20), (16, 16, 34, 40),
+                                          (8, 8, 40, 40)])
+def test_ssd_table_deep_many_blocks(dev, size, r, ny, nx, kind, bit_depth):
+    """Grids of more search blocks than the card holds at once (two thread
+    blocks an SM at 32x32, five at 16x16 and 8x8: 264 and 660 on 132 SMs),
+    so that thread blocks run in several waves and reuse shared memory
+    that earlier blocks left behind."""
+    _check_deep_table(dev, size, r, ny, nx, bit_depth, kind,
+                      seed=ny * nx + bit_depth)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16])
+def test_pad_ref_device_on_card(dev, dtype):
+    """The reference padding (one F.pad(mode="replicate")) on the card
+    equals numpy's edge padding, a pad wider than the plane included."""
+    from hevc_tpu_torch.ops import me_ssd
+    rng = np.random.default_rng(3)
+    for h, w, pad in ((1080, 1920, 80), (7, 5, 80)):
+        plane = rng.integers(0, 256 if dtype == np.uint8 else 1024,
+                             (h, w)).astype(dtype)
+        got = me_ssd.pad_ref_device(torch.from_numpy(plane).to(dev), pad)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      np.pad(plane, pad, mode="edge"))
+
+
 @pytest.mark.parametrize("kind", ["random", "zeros_vs_max", "flat"])
 @pytest.mark.parametrize("bit_depth", [10, 12, 14])
 @pytest.mark.parametrize("size,h,w", [(8, 8, 8), (16, 47, 301), (32, 200, 133),

@@ -22,6 +22,15 @@ Phases, each printed on its own line with its seconds:
      the card, with the launch counters reset just before it: 13 frames,
      the IDR and twelve P frames, so that the GOP's reference deltas
      (-1 -5 -9 -13 ...) bring the reference count from 1 up to 4;
+ 3b. encode the same LDP clip with the fractional-refine tables
+     (HEVC_TPU_ME_REFINE=1) and without, twice each in turns, with the
+     lookahead on the final references (HEVC_TPU_ME_PREFILTER_REF=0): one
+     md5 for all four; then with the tables and the default pre-loop-filter
+     lookahead; engine_host, me_device and frames/s of each, and the
+     refine_tables launches;
+ 3c. encode a 1920x1080 fade (the luma of picture t scaled by 1 - 0.08 t,
+     6 frames) with WeightedPredP=1: the analysis must choose weights, so
+     wp_apply launches;
   4. encode 416x240 (13 frames) on the card and on the CPU: the streams
      must match;
   5. encode 416x240 4:2:2 (the fallback inter path, one launch of the
@@ -43,9 +52,14 @@ Phases, each printed on its own line with its seconds:
      (ssd_table_deep, box_energies_deep) run at 10 bits and not at 8;
  7c. encode 416x240 RA-Main10 and low-delay B (9 frames each) on the card
      and on the CPU: each pair of streams must match;
-  8. decode every stream of phases 3-7c with the port's own decoder: every
+ 7d. encode 416x240 with weighted prediction (an LDP fade with
+     WeightedPredP=1, an RA-Main10 fade with WeightedPredB=1) and with the
+     refine tables (LDP, the default lookahead) on the card and on the CPU:
+     each pair of streams must match;
+  8. decode every stream of phases 3-7d with the port's own decoder: every
      picture's MD5 SEI must check and the picture counts must match;
-  9. encode 4 LDP, 2 all-intra and 9 RA-Main10 1080p frames under
+  9. encode 4 LDP (without and with the refine tables), 2 all-intra and 9
+     RA-Main10 1080p frames under
      torch.profiler: the device time of every kernel and the device's busy
      share of each encode's wall time (phases 3, 6 and 7b keep their
      unprofiled frames/s);
@@ -55,7 +69,9 @@ Phase 2 also holds the intra prescreen kernel to its plain version on
 tie), holds the deep SSD table and deep window energies to theirs on the
 1080p planes at 10 and 12 bits (and a 10-bit plane with flat regions), and
 times the reference padding (one F.pad(mode="replicate")) beside the index
-gathers it replaced, on uint8 and int16 planes.
+gathers it replaced, on uint8 and int16 planes; and holds wp_apply and
+refine_tables (csrc/me_refine.cu) to theirs at 8 and 10 bits, the refine
+tables at the MVs the search finds and at MVs on the window's edges.
 The input is synthetic moving texture made from --seed with numpy.
 The last two lines are a JSON object with every kernel's numbers and the
 result {"ok": true, "device": {...}}. Any failed phase exits non-zero.
@@ -104,6 +120,10 @@ N_INTRA = 5
 # frames of the random-access and low-delay B encodes: the IDR and one GOP
 # of eight
 N_RA = 9
+# frames of the 1080p weighted-prediction fade (WeightedPredP=1) and its
+# gain ramp: the luma of picture t is scaled by 1 - FADE * t
+N_FADE = 6
+FADE = 0.08
 # md5 of the 1080p streams for --seed 1, as recorded in PERF.md: low-delay
 # P, and all-intra
 HD_MD5_SEED1 = "3c38a4a0a2472e9637789e622fb401e7"
@@ -180,11 +200,16 @@ def deep_plane(p, bit_depth):
     return ((p.astype(np.int16) << k) | (p & ((1 << k) - 1))).astype(np.int16)
 
 
-def write_clip(path, w, h, n, seed, chroma=420, bit_depth=8):
+def write_clip(path, w, h, n, seed, chroma=420, bit_depth=8, fade=0.0):
     """Write clip_frames(...) as planar YUV; returns the (8-bit) luma
     planes. Above 8 bits the samples are deep_plane's, written as 16-bit
-    little-endian."""
+    little-endian. fade > 0 scales the luma of picture t by 1 - fade * t
+    (a fade to black, for weighted prediction)."""
     frames = clip_frames(w, h, n, seed, chroma)
+    for t, planes in enumerate(frames):
+        if fade:
+            planes[0] = np.rint(planes[0] * (1.0 - fade * t)).astype(
+                np.uint8)
     with open(path, "wb") as fh:
         for planes in frames:
             for p in planes:
@@ -412,6 +437,7 @@ def check_kernels(frames, seed, results):
     time_torch_ops(frames, dev)
     check_intra_screen(frames, results)
     check_deep_kernels(frames, results)
+    check_option_kernels(frames, results)
 
     mma_probe(dev)
     rate = vabsdiff4_peak(dev)
@@ -679,6 +705,145 @@ def check_deep_kernels(frames, results):
     log(f"  ssd_table_deep kernel alone (10-bit, both grids, box plane "
         f"precomputed, queued): {alone_ms:.4f} ms; staging probe "
         f"{stage_ms:.4f} ms, products {alone_ms - stage_ms:.4f} ms")
+
+
+def refine_ops(size, cy, cx):
+    """32-bit integer operations of the refine tables for blocks whose half
+    winners are (cy, cx) [n]: a multiply-add counts 2 (taps that are 0
+    are not counted), a shift, add, abs or compare 1. Interpolation: the
+    half stage's three fractional phases over the (size + 1)^2 samples its
+    nine tiles cover (phase (2, 2) by a horizontal pass over size + 8
+    rows); each quarter candidate's tile, one horizontal pass per distinct
+    horizontal phase shared by its rows. SATD: 17 tiles of size^2
+    differences (a subtraction, 6 butterfly operations, an abs and an add
+    each). Work that the data decides (the quarter phases) is counted for
+    this run's half winners."""
+    taps = (0, 7, 8, 7)
+    side = size + 1
+    half = (2 * side * side * (2 * 8 + 5) + (size + 8) * side * (2 * 8 + 1)
+            + side * side * (2 * 8 + 5))
+    satd = 17 * size * size * 9
+    per = {}
+    for hy in (-2, 0, 2):
+        for hx in (-2, 0, 2):
+            ops, hpass = 0, {}
+            for qy in (hy - 1, hy, hy + 1):
+                for qx in (hx - 1, hx, hx + 1):
+                    if (qy, qx) == (hy, hx):
+                        continue
+                    fy, fx = qy & 3, qx & 3
+                    if fy and fx:
+                        hpass.setdefault(fx, set()).add(qy >> 2)
+                        ops += size * size * (2 * taps[fy] + 5)
+                    else:
+                        ops += size * size * (2 * taps[fy or fx] + 5)
+            for fx, shifts in hpass.items():
+                ops += (size + 6 + len(shifts)) * size * (2 * taps[fx] + 1)
+            per[(hy, hx)] = ops
+    cyx = torch.stack([cy, cx], 1).cpu().numpy()
+    quarter = sum(per[(int(a), int(b))] for a, b in cyx)
+    return float(len(cyx) * (half + satd) + quarter)
+
+
+def check_option_kernels(frames, results):
+    """The search options' kernels (csrc/me_refine.cu) against their plain
+    versions at 1080p shapes, exactly. wp_apply: the padded reference at 8
+    and 10 bits under a fade's weight, a negative weight with a negative
+    offset, and denom 0. refine_tables: both grids of the main path at 8
+    and 10 bits, at the integer MVs the search finds (timed, at 8 bits) and
+    with every block's MV at a corner or edge of its window (+-r). The
+    bound of wp_apply is its bytes; that of refine_tables its operations
+    (refine_ops) over the 67 T/s 32-bit rate."""
+    from hevc_tpu_torch.ops import me_ssd
+    dev = torch.device("cuda")
+    h, w = frames[0].shape
+    wps = ((51, -3, 6), (-20, -7, 3), (3, 10, 0))
+    acc = {"wp_apply": {"ms": 0.0, "q_ms": 0.0, "plain_ms": 0.0,
+                        "err": 0, "bytes": 0.0, "ops": 0.0},
+           "refine_tables": {"ms": 0.0, "q_ms": 0.0, "plain_ms": 0.0,
+                             "err": 0, "bytes": 0.0, "ops": 0.0}}
+    for bd in (8, 10):
+        conv = (lambda p: p) if bd == 8 else (lambda p: deep_plane(p, bd))
+        orig = torch.from_numpy(conv(frames[1])).to(dev)
+        refp = me_ssd.pad_ref_device(torch.from_numpy(conv(frames[0])).to(
+            dev), PAD)
+        a = acc["wp_apply"]
+        for wpv in wps:
+            got = me_ssd.wp_apply(refp, wpv, bd)
+            e = max_abs_err(got, me_ssd.wp_apply_plain(refp, wpv, bd))
+            log(f"  wp_apply {bd}-bit {tuple(refp.shape)} {wpv}: max_abs_err "
+                f"{e}")
+            if e != 0:
+                raise AssertionError("wp_apply disagrees with its plain "
+                                     "version")
+            a["err"] = max(a["err"], e)
+        if bd == 8:
+            fn = lambda: me_ssd.wp_apply(refp, wps[0], bd)  # noqa: E731
+            a["ms"], a["q_ms"] = cuda_ms(fn, 20), cuda_ms(fn, 50, queued=True)
+            a["plain_ms"] = cuda_ms(
+                lambda: me_ssd.wp_apply_plain(refp, wps[0], bd), 5)
+            a["bytes"] = 2.0 * refp.numel()
+            a["ops"] = 6.0 * refp.numel()  # mul, add, shift, add, 2 clamps
+        a = acc["refine_tables"]
+        for size, r in ((32, 64), (16, 16)):
+            ny, nx, nyx = h // size, w // size, 2 * r + 1
+            kwp = dict(size=size, r=r, ny=ny, nx=nx, pad=PAD)
+            kw = dict(kwp, depth=bd)
+            found = me_ssd.me_idx_frame(orig, refp, me_ssd._bits0_dev(r, dev),
+                                        100, **kw)
+            ends = torch.tensor([(dy + r) * nyx + dx + r for dy in (-r, 0, r)
+                                 for dx in (-r, 0, r)], dtype=torch.int32,
+                                device=dev).repeat(ny * nx // 9 + 1)
+            phases = me_ssd._build_phases_plain(refp, bd)
+            for mvs, gidx in (("found", found), ("edges", ends[:ny * nx])):
+                got = me_ssd.refine_tables(orig, refp, gidx, **kw)
+                exp = me_ssd._refine_direct_plain(orig, phases, gidx, **kwp)
+                e = max(max_abs_err(x, y) for x, y in zip(got, exp))
+                log(f"  refine_tables {bd}-bit {size}x{size} r={r} "
+                    f"({ny * nx} blocks, MVs {mvs}): max_abs_err {e}; "
+                    f"offsets used {torch.unique(got[0]).numel()} of 49")
+                if e != 0:
+                    raise AssertionError("refine_tables disagrees with its "
+                                         "plain version")
+                a["err"] = max(a["err"], e)
+            if bd != 8:
+                continue
+            # the half winners decide the quarter stage's phases
+            ob, base_r, base_c = me_ssd._refine_setup(orig, found, **kwp)
+            _, cy, cx, _ = me_ssd._refine_half_plain(ob, phases, base_r,
+                                                     base_c, size)
+            del phases
+            fn = lambda: me_ssd.refine_tables(  # noqa: E731
+                orig, refp, found, **kw)
+            ms, q_ms = cuda_ms(fn, 10), cuda_ms(fn, 20, queued=True)
+            a["ms"] += ms
+            a["q_ms"] += q_ms
+            a["plain_ms"] += cuda_ms(lambda: me_ssd._refine_direct_plain(
+                orig, me_ssd._build_phases_plain(refp, bd), found, **kwp), 2)
+            ops = refine_ops(size, cy, cx)
+            a["ops"] += ops
+            a["bytes"] += (refp.numel() + ny * nx * size * size
+                           + 3 * 4 * ny * nx)
+            log(f"  refine_tables 8-bit {size}x{size} r={r}: {ms:.4f} ms "
+                f"(queued {q_ms:.4f}), {ops / 1e9:.3f} G ops; half winners "
+                f"off the centre {int(((cy != 0) | (cx != 0)).sum())} of "
+                f"{ny * nx}")
+    for name, replaces in (("wp_apply", "hevc_tpu/ops/me_mxu.py:452"),
+                           ("refine_tables", "hevc_tpu/ops/me_mxu.py:370")):
+        a = acc[name]
+        bms, by = bound_ms(a["bytes"], a["ops"], SCALAR32_OPS)
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": "hevc_tpu_torch/csrc/me_refine.cu",
+            "replaces": replaces, "max_abs_err": a["err"], "ms": a["ms"],
+            "plain_ms": a["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "queued_ms": a["q_ms"]}
+        what = "both grids" if name == "refine_tables" else "the plane"
+        log(f"  {name} (8-bit, one reference, {what}): kernel_ms "
+            f"{a['ms']:.4f} (queued "
+            f"{a['q_ms']:.4f}) plain_ms {a['plain_ms']:.3f} bound_ms "
+            f"{bms:.4f} ({by}, {a['ops'] / 1e9:.3f} G ops, "
+            f"{a['bytes'] / 1e6:.2f} MB)")
 
 
 def mma_probe(dev):
@@ -1025,19 +1190,22 @@ def check_planes(orig, refp, lam_fp, rate, blks, areas, results):
 
 
 def profile_encodes(tmp, seed):
-    """Phase 9: a 4-frame LDP, a 2-picture all-intra and a 9-frame
-    RA-Main10 (the IDR and one GOP of eight, 10-bit) 1080p encode under
+    """Phase 9: a 4-frame LDP (without and with the refine tables), a
+    2-picture all-intra and a 9-frame RA-Main10 (the IDR and one GOP of
+    eight, 10-bit) 1080p encode under
     torch.profiler with CUDA activity. Logs, per encode, every device
     activity by name (device ms in all, count) and the device's busy share
     of the encode's wall time (the union of the device intervals over the
     host clock around the encode)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for name, n, cfg, bd in (("prof_ldp", 4, LDP_CFG, 8),
-                             ("prof_intra", 2, INTRA_CFG, 8),
-                             ("prof_ra10", N_RA, RA10_CFG, 10)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    for name, n, cfg, bd, env in (
+            ("prof_ldp", 4, LDP_CFG, 8, {}),
+            ("prof_ldp_refine", 4, LDP_CFG, 8, {"HEVC_TPU_ME_REFINE": "1"}),
+            ("prof_intra", 2, INTRA_CFG, 8, {}),
+            ("prof_ra10", N_RA, RA10_CFG, 10, {})):
+        with env_set(env), profile(activities=[ProfilerActivity.CPU,
+                                               ProfilerActivity.CUDA]) as prof:
             _, secs, _, _ = encode(tmp, name, 1920, 1080, n, seed, "cuda",
                                    cfg=cfg, bit_depth=bd)
         del streams[name]
@@ -1108,12 +1276,13 @@ def encode_hd422(tmp, seed):
 
 
 def encode(tmp, name, w, h, n, seed, device, chroma=420, recon=False,
-           cfg=LDP_CFG, bit_depth=8):
-    """One CLI encode; returns (stream bytes, seconds, CLI stdout, luma
-    planes). Every stream is kept in `streams` for the decode phase."""
+           cfg=LDP_CFG, bit_depth=8, extra=(), fade=0.0):
+    """One CLI encode (extra: more CLI arguments); returns (stream bytes,
+    seconds, CLI stdout, luma planes). Every stream is kept in `streams`
+    for the decode phase."""
     from hevc_tpu_torch.cli.encode import main
     clip = os.path.join(tmp, f"{name}.yuv")
-    frames = write_clip(clip, w, h, n, seed, chroma, bit_depth)
+    frames = write_clip(clip, w, h, n, seed, chroma, bit_depth, fade)
     out = os.path.join(tmp, f"{name}.bin")
     args = ["-c", cfg, "-i", clip, "-wdt", str(w), "-hgt", str(h),
             "-f", str(n), "-b", out]
@@ -1124,6 +1293,7 @@ def encode(tmp, name, w, h, n, seed, device, chroma=420, recon=False,
                  f"--InternalBitDepth={bit_depth}"]
     if recon:
         args += ["-o", os.path.join(tmp, f"{name}_rec.yuv")]
+    args += list(extra)
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -1162,6 +1332,33 @@ def check_hd_encode(stream, secs, out, frames, tmp, name, md5_seed1, seed,
                              f"{md5_seed1} for --seed 1")
     if not all(np.isfinite(ps)) or min(ps) < 25.0:
         raise AssertionError(f"recon PSNR too low: {ps}")
+
+
+@contextlib.contextmanager
+def env_set(env):
+    """Set environment variables for the duration of a block."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def log_encode(name, env, stream, secs, out, sections, extra=""):
+    """One line per encode: settings, md5, wall time, the CLI's frames/s
+    and the host/device sections engine_host and me_device."""
+    fps_line = [ln for ln in out.splitlines() if "fps" in ln]
+    log(f"  {name} {env}: {len(stream)} bytes md5 "
+        f"{hashlib.md5(stream).hexdigest()}, {secs:.2f} s incl. warm-up; "
+        f"CLI: {fps_line[-1].strip() if fps_line else 'no fps line'}; "
+        f"engine_host {sections.get('engine_host', 0.0)} s, me_device "
+        f"{sections.get('me_device', 0.0)} s; {extra}")
+    log(f"    sections (s): {sections}")
 
 
 def psnr_y(frames, rec_path, w, h, bit_depth=8):
@@ -1238,6 +1435,61 @@ def main():
                 if main_launches[k] <= 0:
                     raise AssertionError(f"{k} was never launched")
                 results[k]["launches"] = main_launches[k]
+
+        with Phase("3b encode 1920x1080 LDP-P with the refine tables on "
+                   "cuda"):
+            # off, on, on, off with the lookahead on the final references:
+            # one stream; then on with the default pre-loop-filter one
+            md5s = {}
+            pf0 = {"HEVC_TPU_ME_PREFILTER_REF": "0"}
+            for name, env in (
+                    ("hd_pf0_off", dict(pf0, HEVC_TPU_ME_REFINE="0")),
+                    ("hd_pf0_on", dict(pf0, HEVC_TPU_ME_REFINE="1")),
+                    ("hd_pf0_on_b", dict(pf0, HEVC_TPU_ME_REFINE="1")),
+                    ("hd_pf0_off_b", dict(pf0, HEVC_TPU_ME_REFINE="0")),
+                    ("hd_refine", {"HEVC_TPU_ME_REFINE": "1"})):
+                with env_set(env):
+                    runtime.reset_launches()
+                    timers.reset()
+                    timers.enabled = True
+                    stream, secs, out, _ = encode(
+                        tmp, name, 1920, 1080, N_FRAMES, args.seed, "cuda")
+                    timers.enabled = False
+                n = runtime.launches["refine_tables"]
+                md5s[name] = hashlib.md5(stream).hexdigest()
+                log_encode(name, env, stream, secs, out, timers.summary(),
+                           f"refine_tables launches {n}")
+                if (n > 0) != (env["HEVC_TPU_ME_REFINE"] == "1"):
+                    raise AssertionError(f"{name}: refine_tables launched "
+                                         f"{n} times")
+                if name == "hd_refine":
+                    results["refine_tables"]["launches"] = n
+            # the same bytes four times: phase 8 decodes one of them
+            for name in ("hd_pf0_off", "hd_pf0_on_b", "hd_pf0_off_b"):
+                del streams[name]
+                if md5s[name] != md5s["hd_pf0_on"]:
+                    raise AssertionError(
+                        "the refine tables changed the stream with "
+                        "HEVC_TPU_ME_PREFILTER_REF=0")
+
+        with Phase("3c encode a 1920x1080 fade with WeightedPredP=1 on "
+                   "cuda"):
+            runtime.reset_launches()
+            timers.reset()
+            timers.enabled = True
+            stream, secs, out, frames = encode(
+                tmp, "hd_fade", 1920, 1080, N_FADE, args.seed, "cuda",
+                recon=True, extra=["--WeightedPredP=1"], fade=FADE)
+            timers.enabled = False
+            n = runtime.launches["wp_apply"]
+            check_hd_encode(stream, secs, out, frames, tmp, "hd_fade", None,
+                            args.seed)
+            log(f"  wp_apply launches {n} (a launch only where the analysis "
+                f"chose weights)")
+            if n <= 0:
+                raise AssertionError("no weights chosen: wp_apply was never "
+                                     "launched")
+            results["wp_apply"]["launches"] = n
 
         with Phase("4 416x240 cuda vs cpu"):
             s_gpu, t_gpu, _, _ = encode(tmp, "cif_gpu", 416, 240, N_FRAMES,
@@ -1369,6 +1621,34 @@ def main():
                 if gpu_launches[key] <= 0:
                     raise AssertionError(f"{name}: {key} was never launched")
 
+        with Phase("7d 416x240 weighted prediction and refine tables cuda "
+                   "vs cpu"):
+            for name, cfg, bd, n, extra, fade, env, key in (
+                    ("cif_wp", LDP_CFG, 8, N_FRAMES, ["--WeightedPredP=1"],
+                     FADE, {}, "wp_apply"),
+                    ("cif_wp_ra10", RA10_CFG, 10, N_RA,
+                     ["--WeightedPredP=1", "--WeightedPredB=1"], FADE, {},
+                     "wp_apply"),
+                    ("cif_refine", LDP_CFG, 8, N_FRAMES, [], 0.0,
+                     {"HEVC_TPU_ME_REFINE": "1"}, "refine_tables")):
+                kw = dict(cfg=cfg, bit_depth=bd, extra=extra, fade=fade)
+                with env_set(env):
+                    runtime.reset_launches()
+                    s_gpu, t_gpu, _, _ = encode(tmp, f"{name}_gpu", 416, 240,
+                                                n, args.seed, "cuda", **kw)
+                    launched = runtime.launches[key]
+                    s_cpu, t_cpu, _, _ = encode(tmp, f"{name}_cpu", 416, 240,
+                                                n, args.seed, "cpu", **kw)
+                log(f"  {name}: cuda {len(s_gpu)} bytes md5 "
+                    f"{hashlib.md5(s_gpu).hexdigest()} {t_gpu:.2f} s; cpu "
+                    f"{len(s_cpu)} bytes md5 {hashlib.md5(s_cpu).hexdigest()}"
+                    f" {t_cpu:.2f} s; cuda {key} launches {launched}")
+                if s_gpu != s_cpu:
+                    raise AssertionError(f"{name}: cuda and cpu streams "
+                                         f"differ")
+                if launched <= 0:
+                    raise AssertionError(f"{name}: {key} was never launched")
+
         with Phase("8 decode every stream with the port's decoder"):
             from hevc_tpu_torch.decoder.top import DecoderTop
             for name, (data, n) in streams.items():
@@ -1402,7 +1682,7 @@ def main():
     order = ["ssd_table", "argmin_two_pass", "box_energies", "sad_table",
              "sad_cost_argmin", "full_search", "sad_table_planes",
              "me_planes", "intra_screen", "ssd_table_deep",
-             "box_energies_deep"]
+             "box_energies_deep", "wp_apply", "refine_tables"]
     kernels = [results[k] for k in order]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

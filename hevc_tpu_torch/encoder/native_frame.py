@@ -28,6 +28,16 @@ from ..ops.interp import pad_plane
 PAD = 80
 
 
+def wp_apply_np(plane: np.ndarray, wpv, depth: int) -> np.ndarray:
+    """Host twin of ops/me_ssd.wp_apply: the integer-pel weighted-prediction
+    transform of a reference plane (w, o, denom)."""
+    w, o, d = int(wpv[0]), int(wpv[1]), int(wpv[2])
+    s = plane.astype(np.int64)
+    v = ((s * w + ((1 << (d - 1)) if d > 0 else 0)) >> d) \
+        + (o << max(depth - 8, 0))
+    return np.clip(v, 0, (1 << depth) - 1).astype(plane.dtype)
+
+
 def batched_me_grid(orig_y: np.ndarray, ref_padded_y: np.ndarray, size: int,
                     search_range: int, lam_fp: int, ref_dev=None,
                     orig_dev=None, depth: int = None, wpv=None,
@@ -37,7 +47,9 @@ def batched_me_grid(orig_y: np.ndarray, ref_padded_y: np.ndarray, size: int,
 
     Runs the device SSD search (ops/me_ssd.py). ref_dev, when given, is
     the padded reference Y plane already resident on the device (the
-    encoder's reference cache: each upload is paid once)."""
+    encoder's reference cache: each upload is paid once). wpv, when given,
+    is the (w, o, denom) triple the device applies to the reference before
+    the search (me_ssd.wp_apply, into a new plane)."""
     h, w = orig_y.shape
     nx = (w - size) // size + 1 if w >= size else 0
     ny = (h - size) // size + 1 if h >= size else 0
@@ -48,16 +60,14 @@ def batched_me_grid(orig_y: np.ndarray, ref_padded_y: np.ndarray, size: int,
                  int(ref_padded_y.max(initial=0)))
         depth = 8 if mx < 256 else (10 if mx < 1024 else 12)
     from ..ops import me_ssd
-    if wpv is not None:
-        raise NotImplementedError(
-            "the weighted-prediction search (wp_apply) is not ported to "
-            "hevc_tpu_torch yet")
     dev = runtime.resolve_device(device)
     dt = me_ssd.me_dtype(depth)
     ref = ref_dev if ref_dev is not None else \
         runtime.upload(ref_padded_y.astype(dt), dev)
     src = orig_dev if orig_dev is not None else \
         runtime.upload(orig_y.astype(dt), dev)
+    if wpv is not None:
+        ref = me_ssd.wp_apply(ref, wpv, depth)
     return me_ssd.me_grid_ssd(src, ref, size, search_range, lam_fp, pad=PAD,
                               depth=depth)
 

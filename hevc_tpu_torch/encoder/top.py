@@ -60,9 +60,13 @@ def _gop_depth(poc: int, gop_size: int) -> int:
 
 
 def _rf() -> bool:
-    """Device fractional-refine tables (HEVC_TPU_ME_REFINE=1), default
-    off as in the reference. Not ported yet: asking for them raises
-    NotImplementedError in ops/me_ssd.py."""
+    """Device fractional-refine tables (HEVC_TPU_ME_REFINE=1,
+    ops/me_ssd.refine_tables), default off as in the reference. The engine
+    then refines each grid block by one table lookup instead of its 17
+    interpolations and SATDs, with the same decisions. With the default
+    HEVC_TPU_ME_PREFILTER_REF=1 the lookahead searches, and so refines,
+    against the pre-loop-filter luma, which the host loop does not: the
+    stream then differs from the one with the tables off."""
     return os.environ.get("HEVC_TPU_ME_REFINE", "0") == "1"
 
 def hm_pic_lambda(qp: float, gop_size: int, gop_poc: int, qp_factor: float,

@@ -627,8 +627,8 @@ class NativeCtuEngine:
 
     def set_refine(self, level: int, ref: int, off: np.ndarray,
                    half_min: np.ndarray) -> None:
-        """Install a device fractional-refine table (ops/me_mxu refine
-        outputs): packed quarter offsets + 3x3-half screen minima for
+        """Install a device fractional-refine table (ops/me_ssd
+        refine_tables outputs): packed quarter offsets + 3x3-half screen minima for
         one (level, ref) — level 0/1/2 = list-0 32-grid / list-0
         16-grid / list-1 32-grid."""
         off = np.ascontiguousarray(off, np.int32)

@@ -19,9 +19,17 @@ which the wrappers run only for tensors on the CPU. Deep bit depths (9-14
 bits, int16 planes) take the deep SSD table (the reference's
 `_ssd_table_deep`: samples shifted to at most 10 bits and centred, the
 correlation as three int8 ones) and the deep window energies, both CUDA
-kernels too, and the rate term scaled by `_lam_shift`. The
-weighted-prediction search (`wp_apply`) and the fractional-refine tables
-are not ported yet: asking for them raises NotImplementedError.
+kernels too, and the rate term scaled by `_lam_shift`.
+
+Two options of the search have kernels of their own (csrc/me_refine.cu).
+Weighted prediction (`wp_apply`) transforms each reference plane with its
+(w, o, denom) triple into a new plane that the search then runs on. The
+fractional-refine tables (`refine_tables`, HEVC_TPU_ME_REFINE=1) replay the
+host engine's half- then quarter-pel SATD refinement around every grid
+block's integer MV and return the packed quarter offset and the 3x3
+half-pel minimum of each block. Their plain versions (`wp_apply_plain`,
+`_build_phases_plain`, `_satd_of_tiles_plain`, `_refine_direct_plain`) are
+the reference's XLA programs written in torch.
 """
 from __future__ import annotations
 
@@ -380,13 +388,281 @@ def _argmin_two_pass(ssd, bits0, lam_q8, *, r, ny, nx, size):
     return idx
 
 
+# ---------------------------------------------------------------------
+# weighted prediction (reference me_mxu.wp_apply, wp_operand)
+# ---------------------------------------------------------------------
+def wp_apply_plain(plane: torch.Tensor, wpv, depth: int) -> torch.Tensor:
+    """Plain version of the wp_apply kernel: clip(((s * w + rnd) >> d)
+    + (o << max(depth - 8, 0)), 0, 2^depth - 1) in int32 with arithmetic
+    shifts, rnd = 1 << (d - 1) for d > 0 and 0 for d = 0, cast back to the
+    plane's dtype."""
+    w, o, d = (int(v) for v in wpv)
+    rnd = (1 << (d - 1)) if d > 0 else 0
+    v = ((plane.to(torch.int32) * w + rnd) >> d) + (o << max(depth - 8, 0))
+    return v.clamp(0, (1 << depth) - 1).to(plane.dtype)
+
+
+def wp_apply(plane: torch.Tensor, wpv, depth: int) -> torch.Tensor:
+    """Weighted-prediction transform of an integer reference plane (the
+    integer-pel specialisation of spec 8.5.3.3.4.3): searching on the
+    weighted plane makes the SSD the weighted distortion (reference
+    TComRdCostWeightPrediction). wpv = (w, o, denom). Returns a new plane:
+    the cached reference is shared by other frames. On the card one launch
+    of the wp_apply kernel over a contiguous uint8 (8-bit) or int16 (9-14
+    bits) plane."""
+    if plane.device.type == "cpu":
+        return wp_apply_plain(plane, wpv, depth)
+    w, o, d = (int(v) for v in wpv)
+    if depth > 14:
+        raise NotImplementedError("wp_apply: 15-16-bit planes (int32) have "
+                                  "no kernel")
+    off = o << max(depth - 8, 0)
+    if not (0 <= d <= 30 and -(1 << 31) <= w < (1 << 31)
+            and -(1 << 31) <= off < (1 << 31)):
+        raise ValueError(f"wp_apply: weight triple {wpv} out of range")
+    runtime.require(plane, torch.uint8 if depth <= 8 else torch.int16,
+                    "wp_apply plane")
+    out = torch.empty_like(plane)
+    lib = runtime.kernel_lib("me_refine")
+    rc = lib.hevc_wp_apply(plane.data_ptr(), out.data_ptr(), plane.numel(),
+                           plane.element_size(), w, d, off, depth,
+                           runtime.stream_of(plane))
+    runtime.check(lib, rc, "wp_apply")
+    return out
+
+
+def wp_operand(wp, nref: int, npad: int) -> np.ndarray:
+    """[npad, 3] int32 operand from per-ref (w, o, denom) triples; None
+    entries become the identity transform (w = 1, o = 0, d = 0)."""
+    v = np.tile(np.array([1, 0, 0], np.int32), (npad, 1))
+    for i in range(min(nref, npad)):
+        t = wp[i] if wp is not None and i < len(wp) else None
+        if t is not None:
+            v[i] = (int(t[0]), int(t[1]), int(t[2]))
+    return v
+
+
+# ---------------------------------------------------------------------
+# fractional-refine tables (reference me_mxu._build_phases,
+# _satd_of_tiles, _refine_direct): the host engine's half- then
+# quarter-pel SATD refinement (engine.cpp cost_of, reference
+# TEncSearch::xPatternSearchFracDIF) and the 3x3 half-pel minimum of its
+# split screen, for every grid block at its integer MV
+# ---------------------------------------------------------------------
+_LUMA_TAPS = ((0, 0, 0, 64, 0, 0, 0, 0),
+              (-1, 4, -10, 58, 17, -5, 1, 0),
+              (-1, 4, -11, 40, 40, -11, 4, -1),
+              (0, 1, -5, 17, 58, -10, 4, -1))
+# host refine orders: dy outer, dx inner, strict <; half-pel steps around
+# the integer centre, then quarter-pel steps around the half winner
+_HALF_SEQ = [(dy, dx) for dy in (-2, 0, 2) for dx in (-2, 0, 2)
+             if (dy, dx) != (0, 0)]
+_QUART_SEQ = [(dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+              if (dy, dx) != (0, 0)]
+
+
+def _hadamard(t: int) -> torch.Tensor:
+    """t x t Sylvester Hadamard matrix (t = 4 or 8), float64."""
+    h = torch.ones((1, 1), dtype=torch.float64)
+    while h.shape[0] < t:
+        h = torch.cat([torch.cat([h, h], 1), torch.cat([h, -h], 1)], 0)
+    return h
+
+
+def _build_phases_plain(refp: torch.Tensor, depth: int) -> torch.Tensor:
+    """[16, Hp-7, Wp-7] int32 planes of clipped prediction samples, one per
+    (fy, fx) phase (index fy*4+fx); plane (y', x') is the predicted sample
+    at padded coordinate (y'+3, x'+3). The shifts come in the reference's
+    order: the first pass is shifted by 6 - hr before the second, which
+    keeps 14-bit samples inside int32."""
+    hr = max(2, 14 - depth)
+    s1 = 6 - hr
+    off_u = 1 << (hr - 1)
+    maxv = (1 << depth) - 1
+    p0 = refp.to(torch.int32)
+    hp, wp = p0.shape
+    w2, h2 = wp - 7, hp - 7
+
+    def hfilt(fx):
+        acc = _LUMA_TAPS[fx][0] * p0[:, 0:w2]
+        for k in range(1, 8):
+            if _LUMA_TAPS[fx][k]:
+                acc = acc + _LUMA_TAPS[fx][k] * p0[:, k:k + w2]
+        return acc >> s1
+
+    def vfilt(x, fy):
+        acc = _LUMA_TAPS[fy][0] * x[0:h2]
+        for k in range(1, 8):
+            if _LUMA_TAPS[fy][k]:
+                acc = acc + _LUMA_TAPS[fy][k] * x[k:k + h2]
+        return acc
+
+    def finish(v):
+        return ((v + off_u) >> hr).clamp(0, maxv)
+
+    hs = {fx: hfilt(fx) for fx in (1, 2, 3)}
+    planes = []
+    for fy in range(4):
+        for fx in range(4):
+            if fy == 0 and fx == 0:
+                planes.append(p0[3:3 + h2, 3:3 + w2])
+            elif fy == 0:
+                planes.append(finish(hs[fx][3:3 + h2]))
+            elif fx == 0:
+                planes.append(finish(vfilt(p0[:, 3:3 + w2], fy) >> s1))
+            else:
+                planes.append(finish(vfilt(hs[fx], fy) >> 6))
+    return torch.stack(planes)
+
+
+def _satd_of_tiles_plain(ob: torch.Tensor, tiles: torch.Tensor,
+                         size: int) -> torch.Tensor:
+    """dsp::satd of [n, size, size] prediction tiles against the per-block
+    originals ob: per 8x8 tile (s + 2) >> 2 of s = sum |H d H^T| (the 4x4
+    variant, (s + 1) >> 1, below 8), summed over the tiles. The transform
+    runs in float64, exact for these sums (|s| < 2^27 through 16 bits)."""
+    t = 8 if size >= 8 else 4
+    nt = size // t
+    h = _hadamard(t).to(ob.device)
+    n = ob.shape[0]
+    d = ((ob - tiles).reshape(n, nt, t, nt, t).permute(0, 1, 3, 2, 4)
+         .to(torch.float64))
+    m = torch.einsum("ab,nstbc,dc->nstad", h, d, h)
+    s = m.abs().sum(dim=(3, 4)).to(torch.int32)
+    per = (s + (2 if t == 8 else 1)) >> (2 if t == 8 else 1)
+    return per.sum(dim=(1, 2), dtype=torch.int32)
+
+
+def _refine_setup(orig, gidx, *, size, r, ny, nx, pad):
+    """Per-block originals [n, size, size] int32 and the phase-plane row
+    and column [n] of each block's tile at its integer MV: plane (y', x')
+    is padded (y'+3, x'+3), so the tile of quarter offset q starts at
+    plane row pad + BY + mvy - 3 + (q >> 2)."""
+    nyx = 2 * r + 1
+    dev = orig.device
+    g = gidx.to(torch.int64)
+    mvy = torch.div(g, nyx, rounding_mode="floor") - r
+    mvx = g % nyx - r
+    bx = (torch.arange(nx, device=dev) * size).repeat(ny)
+    by = (torch.arange(ny, device=dev) * size).repeat_interleave(nx)
+    return (_blocks(orig, size, ny, nx), pad + by + mvy - 3,
+            pad + bx + mvx - 3)
+
+
+def _slice_start(s: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """A start of the reference's lax.dynamic_slice: a negative start
+    counts from the end of the axis (JAX's allow_negative_indices), then
+    it is clamped so that the slice fits. Starts leave the phase planes
+    only for r > pad - 4."""
+    return torch.where(s < 0, s + dim, s).clamp(0, dim - size)
+
+
+def _phase_tiles(phases, pidx, r0, c0, size):
+    """[n, size, size] tiles of phases[pidx] at (r0, c0) per block, with
+    the reference's slice starts (_slice_start)."""
+    _, h2, w2 = phases.shape
+    ar = torch.arange(size, device=phases.device)
+    rows = _slice_start(r0, h2, size)[:, None] + ar
+    cols = _slice_start(c0, w2, size)[:, None] + ar
+    if isinstance(pidx, int):
+        return phases[pidx][rows[:, :, None], cols[:, None, :]]
+    return phases[pidx[:, None, None], rows[:, :, None], cols[:, None, :]]
+
+
+def _refine_half_plain(ob, phases, base_r, base_c, size):
+    """The half stage: (best cost, cy, cx, 3x3 half minimum) [n] of the
+    9 half-pel candidates, strict < in _HALF_SEQ order."""
+    hvals = {}
+    for dy in (-2, 0, 2):
+        for dx in (-2, 0, 2):
+            tiles = _phase_tiles(phases, (dy & 3) * 4 + (dx & 3),
+                                 base_r + (dy >> 2), base_c + (dx >> 2),
+                                 size)
+            hvals[(dy, dx)] = _satd_of_tiles_plain(ob, tiles, size)
+    bc = hvals[(0, 0)]
+    cy = torch.zeros_like(bc, dtype=torch.int64)
+    cx = torch.zeros_like(cy)
+    for dy, dx in _HALF_SEQ:
+        c = hvals[(dy, dx)]
+        take = c < bc
+        bc = torch.where(take, c, bc)
+        cy = torch.where(take, dy, cy)
+        cx = torch.where(take, dx, cx)
+    half_min = torch.stack(list(hvals.values())).amin(dim=0)
+    return bc, cy, cx, half_min
+
+
+def _refine_direct_plain(orig, phases, gidx, *, size, r, ny, nx, pad):
+    """Plain version of the refine_tables kernel on prebuilt phase planes:
+    (packed quarter offset (by+3)*7 + (bx+3), 3x3 half minimum), int32
+    [ny*nx]: the 9 half-pel candidates, then the 8 quarter-pel ones
+    around the half winner (_QUART_SEQ, strict <)."""
+    ob, base_r, base_c = _refine_setup(orig, gidx, size=size, r=r, ny=ny,
+                                       nx=nx, pad=pad)
+    bc, cy, cx, half_min = _refine_half_plain(ob, phases, base_r, base_c,
+                                              size)
+    by, bx = cy, cx
+    for dy, dx in _QUART_SEQ:
+        qy, qx = cy + dy, cx + dx
+        tiles = _phase_tiles(phases, (qy & 3) * 4 + (qx & 3),
+                             base_r + (qy >> 2), base_c + (qx >> 2), size)
+        c = _satd_of_tiles_plain(ob, tiles, size)
+        take = c < bc
+        bc = torch.where(take, c, bc)
+        by = torch.where(take, qy, by)
+        bx = torch.where(take, qx, bx)
+    return ((by + 3) * 7 + (bx + 3)).to(torch.int32), half_min
+
+
+def refine_tables(orig, refp, gidx, *, size, r, ny, nx, pad, depth):
+    """Fractional-refine tables of one grid against one reference:
+    (off, half) int32 [ny*nx], the packed quarter offset of the host's
+    two-stage refinement around each block's integer MV (gidx, the flat
+    argmin indices of me_idx_frame) and the minimum of its 3x3 half-pel
+    SATDs. orig [H, W] and refp [H+2pad, W+2pad] as me_idx_frame takes
+    them. On the card one launch of the refine_tables kernel (sizes 16 and
+    32, 8-14 bits)."""
+    if refp.device.type == "cpu":
+        return _refine_direct_plain(orig, _build_phases_plain(refp, depth),
+                                    gidx, size=size, r=r, ny=ny, nx=nx,
+                                    pad=pad)
+    if depth > 14:
+        raise NotImplementedError("refine_tables: 15-16-bit planes (int32) "
+                                  "have no kernel")
+    if size not in (16, 32):
+        raise ValueError(f"refine_tables: block size {size} is not 16 or "
+                         "32")
+    dt = torch.uint8 if depth <= 8 else torch.int16
+    runtime.require(orig, dt, "refine_tables orig", contiguous=False)
+    runtime.require(refp, dt, "refine_tables refp", contiguous=False)
+    runtime.require(gidx, torch.int32, "refine_tables gidx")
+    hp, wp = refp.shape
+    if (orig.stride(1) != 1 or refp.stride(1) != 1
+            or gidx.shape != (ny * nx,) or ny * nx == 0
+            or orig.shape[0] < ny * size or orig.shape[1] < nx * size
+            or hp < size + 8 or wp < size + 8):
+        raise ValueError("refine_tables: bad orig/refp/gidx shape or "
+                         "layout")
+    off = torch.empty(ny * nx, dtype=torch.int32, device=refp.device)
+    half = torch.empty_like(off)
+    lib = runtime.kernel_lib("me_refine")
+    rc = lib.hevc_refine_tables(
+        orig.data_ptr(), orig.stride(0), refp.data_ptr(), refp.stride(0),
+        hp, wp, refp.element_size(), gidx.data_ptr(), size, r, ny, nx, pad,
+        depth, off.data_ptr(), half.data_ptr(), runtime.stream_of(refp))
+    runtime.check(lib, rc, "refine_tables")
+    return off, half
+
+
 def me_idx_frame(orig, ref_padded, bits0, lam_q8, *, size, r, ny, nx, pad,
                  depth=8, wpv=None):
     """One frame's two-pass SSD argmin indices [ny*nx] int32 for one
     reference: orig [H, W] and ref_padded [H+2pad, W+2pad] tensors, uint8
-    at 8 bits, int16 at 9-14 bits (me_dtype)."""
+    at 8 bits, int16 at 9-14 bits (me_dtype). `wpv`, when given, is the
+    (w, o, denom) weighted-prediction triple applied to the reference
+    before the search (wp_apply)."""
     if wpv is not None:
-        raise _not_ported("the weighted-prediction search (wp_apply)")
+        ref_padded = wp_apply(ref_padded, wpv, depth)
     aw = 2 * r + size
     roi = ref_padded[pad - r:pad - r + (ny - 1) * size + aw,
                      pad - r:pad - r + (nx - 1) * size + aw]
@@ -406,13 +682,9 @@ def _grid_dims(h: int, w: int, size: int):
     return ny, nx
 
 
-def _check_options(axis_name, wp, refine) -> None:
+def _check_options(axis_name) -> None:
     if axis_name is not None:
         raise _not_ported("the multi-device (mesh) search")
-    if wp is not None and any(t is not None for t in wp):
-        raise _not_ported("the weighted-prediction search (wp_apply)")
-    if refine:
-        raise _not_ported("the device fractional-refine tables")
 
 
 def _grids(idx: np.ndarray, r: int, ny: int, nx: int):
@@ -427,7 +699,10 @@ def me_grids_multi2(orig_dev, ref_devs, size: int, size2: int, r: int,
                     axis_name=None, wp=None, refine: bool = False):
     """MV grids at the CU-grid size AND its half size for several
     references. Returns [(gx, gy, gx2, gy2)] per reference; any grid whose
-    dimension is empty is (None, None)."""
+    dimension is empty is (None, None). wp: per-ref (w, o, denom) luma
+    weighted-prediction triples (or None entries): the search then runs
+    against the weighted reference. refine: also the fractional-refine
+    tables, as a fifth entry {"off32", "half32", "off16", "half16"}."""
     return me_grids_multi2_async(orig_dev, ref_devs, size, size2, r,
                                  lam_fp, pad=pad, depth=depth,
                                  axis_name=axis_name, wp=wp,
@@ -449,8 +724,15 @@ def me_grids_multi2_async(orig_dev, ref_devs, size: int, size2: int,
     The reference pads the reference count to 1/2/4/8 so that XLA compiles
     one program per count; eager PyTorch has nothing to compile, and the
     padded slots' results were discarded, so only the real references are
-    searched."""
-    _check_options(axis_name, wp, refine)
+    searched.
+
+    Under weighted prediction every reference is transformed by wp_apply
+    (None entries by the identity, as the reference's operand makes them)
+    and the refine tables are not computed: the host's WP-aware MC differs
+    from plane weighting. When only one of the two grids fits the picture,
+    the search runs unweighted and without tables, as the reference's
+    single-grid fallback does."""
+    _check_options(axis_name)
     h, w = orig_dev.shape[:2]
     r2 = min(r, 16)
     ny, nx = _grid_dims(h, w, size)
@@ -468,22 +750,46 @@ def me_grids_multi2_async(orig_dev, ref_devs, size: int, size2: int,
         return lambda: out
     dev = orig_dev.device
     lam_q8 = lam_q8_of(lam_fp)
+    use_wp = wp is not None and any(t is not None for t in wp)
+    if use_wp:
+        refine = False  # host WP-aware MC differs from plane weighting
+        wpvs = wp_operand(wp, len(ref_devs), len(ref_devs))
     parts = []
-    for refp in ref_devs:
+    for k, refp in enumerate(ref_devs):
+        if use_wp:
+            refp = wp_apply(refp, wpvs[k], depth)
         i1 = me_idx_frame(orig_dev, refp, _bits0_dev(r, dev), lam_q8,
                           size=size, r=r, ny=ny, nx=nx, pad=pad, depth=depth)
         i2 = me_idx_frame(orig_dev, refp, _bits0_dev(r2, dev), lam_q8,
                           size=size2, r=r2, ny=ny2, nx=nx2, pad=pad,
                           depth=depth)
-        parts.append(torch.cat([i1, i2]))
+        part = [i1, i2]
+        if refine:
+            rk = dict(pad=pad, depth=depth)
+            part += refine_tables(orig_dev, refp, i1, size=size, r=r, ny=ny,
+                                  nx=nx, **rk)
+            part += refine_tables(orig_dev, refp, i2, size=size2, r=r2,
+                                  ny=ny2, nx=nx2, **rk)
+        parts.append(torch.cat(part))
     readback = runtime.Readback(torch.stack(parts))
-    n1 = ny * nx
+    n1, n2 = ny * nx, ny2 * nx2
 
     def collect():
         a = readback.result()
-        return [_grids(a[k, :n1], r, ny, nx) + _grids(a[k, n1:], r2, ny2,
-                                                        nx2)
-                for k in range(len(parts))]
+        out = []
+        for k in range(len(parts)):
+            grids = (_grids(a[k, :n1], r, ny, nx)
+                     + _grids(a[k, n1:n1 + n2], r2, ny2, nx2))
+            if refine:
+                # packed quarter-refine offsets and 3x3 half-pel minima of
+                # both grids, in the order they were concatenated
+                t = np.split(a[k, n1 + n2:], np.cumsum([n1, n1, n2]))
+                grids += ({"off32": t[0].reshape(ny, nx),
+                           "half32": t[1].reshape(ny, nx),
+                           "off16": t[2].reshape(ny2, nx2),
+                           "half16": t[3].reshape(ny2, nx2)},)
+            out.append(grids)
+        return out
     return collect
 
 
@@ -491,7 +797,7 @@ def me_grids_multi(orig_dev, ref_devs, size: int, r: int, lam_fp: int, *,
                    pad: int, depth: int = 8, axis_name=None):
     """(gx, gy) MV grids for several references (the reference searches
     each refIdx separately, TEncSearch.cpp:3027)."""
-    _check_options(axis_name, None, False)
+    _check_options(axis_name)
     h, w = orig_dev.shape[:2]
     ny, nx = _grid_dims(h, w, size)
     if ny == 0 or nx == 0:

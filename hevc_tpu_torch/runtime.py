@@ -38,7 +38,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 launches: dict = {"sad_table": 0, "sad_cost_argmin": 0, "full_search": 0,
                   "ssd_table": 0, "argmin_two_pass": 0, "box_energies": 0,
                   "ssd_table_deep": 0, "box_energies_deep": 0,
-                  "sad_table_planes": 0, "me_planes": 0, "intra_screen": 0}
+                  "sad_table_planes": 0, "me_planes": 0, "intra_screen": 0,
+                  "wp_apply": 0, "refine_tables": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +69,11 @@ _SIGNATURES = {
                                       _I, _I, _I, _P],
         "hevc_box_energies_deep": [_P, _L, _I, _I, _I, _I, _I, _P, _L, _P],
         "hevc_mma_probe": [_P, _I, _I, _P],
+    },
+    "me_refine": {
+        "hevc_wp_apply": [_P, _P, _L, _I, _I, _I, _I, _I, _P],
+        "hevc_refine_tables": [_P, _L, _P, _L, _I, _I, _I, _P, _I, _I, _I,
+                               _I, _I, _I, _P, _P, _P],
     },
     "intra_screen": {
         "hevc_intra_screen": [_P, _L, _I, _I, _P, _I, _I, _I, _I, _I, _P,

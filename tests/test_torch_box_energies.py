@@ -9,6 +9,7 @@ import torch
 from hevc_tpu.ops import me_mxu
 from hevc_tpu_torch.ops import me_ssd
 from test_torch_helpers import no_jax_cache_writes
+from test_torch_helpers import one_torch_thread  # noqa: F401
 
 
 def _plane(kind, h, w, seed):

@@ -13,6 +13,7 @@ from hevc_tpu_torch.cli.encode import main as encode_main
 from test_torch_helpers import (INTRA_CFG, LDP_CFG, moving_frames,
                                 no_jax_cache_writes,
                                 private_reference_native)  # noqa: F401
+from test_torch_helpers import one_torch_thread  # noqa: F401
 
 
 def _clip(path, w, h, n, bit_depth=8, seed=4):

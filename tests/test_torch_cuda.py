@@ -590,3 +590,125 @@ def test_encode_on_card_matches_cpu(dev):
         return out + enc.flush()
     for prefetch in (False, True):
         assert run("cuda", prefetch) == run("cpu", prefetch)
+
+
+@pytest.mark.parametrize("depth", [8, 9, 10, 12, 14])
+@pytest.mark.parametrize("h,w,view", [(1240, 2080, False), (37, 53, False),
+                                      (64, 96, True)])
+def test_wp_apply_matches_plain(dev, h, w, view, depth):
+    """wp_apply against its plain version for every weight triple of the
+    CPU tests (negative and zero weights, denom 0, the syntax's extremes):
+    the 1080p padded plane, an odd size (the one-by-one tail), and a
+    plane that starts at an odd offset (the unaligned path)."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    rng = np.random.default_rng(depth + h)
+    dt = me_ssd.me_dtype(depth)
+    big = torch.from_numpy(rng.integers(0, 1 << depth, h * w + 1).astype(
+        dt)).to(dev)
+    plane = (big[1:] if view else big[:-1]).view(h, w)
+    for wpv in [(45, 12, 6), (64, 0, 6), (3, -10, 1), (1, 5, 0), (-20, 7, 3),
+                (0, 9, 2), (-128, -128, 7), (255, 127, 7), (7, -3, 0)]:
+        before = runtime.launches["wp_apply"]
+        got = me_ssd.wp_apply(plane, wpv, depth)
+        assert runtime.launches["wp_apply"] == before + 1
+        assert got.dtype == plane.dtype and got.shape == plane.shape
+        _eq(got, me_ssd.wp_apply_plain(plane, wpv, depth))
+
+
+def _refine_planes(h, w, depth, seed):
+    """orig and the padded reference (pad 80) for the refine kernel: a
+    smooth texture and a blend of two displaced copies of it, with noise."""
+    rng = np.random.default_rng(seed)
+    top = 1 << depth
+    t = rng.random((h + 16, w + 16))
+    for axis in (0, 1):
+        t = sum(np.roll(t, k, axis) for k in range(-2, 3)) / 5
+    t = np.clip((t - t.mean()) * 6 + 0.5, 0, 1) * (top - 1)
+    a = np.linspace(0, 1, w)[None]
+    ref = a * t[6:6 + h, 5:5 + w] + (1 - a) * t[7:7 + h, 6:6 + w]
+    ref += rng.integers(-2, 3, (h, w)) * (top >> 8)
+    dt = np.uint8 if depth == 8 else np.int16
+    refp = np.pad(np.clip(np.rint(ref), 0, top - 1), PAD, mode="edge")
+    return np.rint(t[8:8 + h, 8:8 + w]).astype(dt), refp.astype(dt)
+
+
+@pytest.mark.parametrize("depth", [8, 10, 12, 14])
+@pytest.mark.parametrize("size,r,h,w", [(32, 8, 96, 160), (16, 16, 96, 160),
+                                        (32, 64, 200, 264),
+                                        (16, 16, 1080, 1920),
+                                        (32, 78, 96, 160), (16, 78, 96, 160)])
+@pytest.mark.parametrize("mvs", ["random", "edges"])
+def test_refine_tables_match_plain(dev, size, r, h, w, depth, mvs):
+    """refine_tables against its plain version: integer MVs at random or
+    at the window's corners and edges (+-r); at r = 78 the tile starts
+    leave the 80-sample pad's phase planes (the kernel's WIDE window);
+    sizes 16 and 32, 8-14 bits, and the 1080p 16-grid."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    orig, refp = _refine_planes(h, w, depth, seed=size + r + depth)
+    ny, nx = h // size, w // size
+    nyx = 2 * r + 1
+    rng = np.random.default_rng(r)
+    if mvs == "random":
+        gidx = rng.integers(0, nyx * nyx, ny * nx)
+    else:
+        ends = [(dy, dx) for dy in (-r, 0, r) for dx in (-r, 0, r)]
+        gidx = np.array([(ends[b % 9][0] + r) * nyx + ends[b % 9][1] + r
+                         for b in range(ny * nx)])
+    o, rp = torch.from_numpy(orig).to(dev), torch.from_numpy(refp).to(dev)
+    g = torch.from_numpy(gidx.astype(np.int32)).to(dev)
+    kw = dict(size=size, r=r, ny=ny, nx=nx, pad=PAD, depth=depth)
+    before = runtime.launches["refine_tables"]
+    off, half = me_ssd.refine_tables(o, rp, g, **kw)
+    assert runtime.launches["refine_tables"] == before + 1
+    exp = me_ssd._refine_direct_plain(
+        o, me_ssd._build_phases_plain(rp, depth), g, **{
+            k: v for k, v in kw.items() if k != "depth"})
+    _eq(off, exp[0])
+    _eq(half, exp[1])
+
+
+def test_refine_and_wp_reject_bad_arguments(dev):
+    from hevc_tpu_torch.ops import me_ssd
+    plane = torch.zeros((120, 140), dtype=torch.int32, device=dev)
+    g = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError):
+        me_ssd.refine_tables(plane, plane, g, size=16, r=4, ny=2, nx=2,
+                             pad=PAD, depth=16)
+    with pytest.raises(NotImplementedError):
+        me_ssd.wp_apply(plane, (1, 0, 0), 16)
+    u8 = torch.zeros((200, 200), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        me_ssd.refine_tables(u8, u8, g, size=8, r=4, ny=2, nx=2, pad=PAD,
+                             depth=8)
+    with pytest.raises(ValueError):
+        me_ssd.wp_apply(u8, (1, 0, 0), 10)   # a 10-bit plane is int16
+
+
+@pytest.mark.parametrize("refine,wp", [("1", False), ("0", True)])
+def test_refine_and_wp_encode_on_card_matches_cpu(dev, monkeypatch, refine,
+                                                  wp):
+    """An LDP encode with the refine tables (the default prefilter), and a
+    fade with WeightedPredP=1: identical bytes on the card and the CPU,
+    and the card ran the kernel."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.encoder.top import EncoderTop
+    from hevc_tpu_torch.io.cfg import EncoderConfig, parse_cfg_file
+    monkeypatch.setenv("HEVC_TPU_ME_REFINE", refine)
+    frames = moving_frames(6, 128, 80, seed=4)
+    if wp:
+        frames = [[(p * (1.0 - 0.1 * t)).astype(np.uint8) if i == 0 else p
+                   for i, p in enumerate(f)] for t, f in enumerate(frames)]
+
+    def run(device):
+        cfg = parse_cfg_file(LDP_CFG, EncoderConfig())
+        cfg.width, cfg.height, cfg.frames_to_encode = 128, 80, 6
+        cfg.weighted_pred_p = int(wp)
+        enc = EncoderTop(cfg, device=device)
+        return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+    key = "wp_apply" if wp else "refine_tables"
+    before = runtime.launches[key]
+    got = run("cuda")
+    assert runtime.launches[key] > before
+    assert got == run("cpu")

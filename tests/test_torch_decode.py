@@ -15,6 +15,7 @@ from hevc_tpu_torch.encoder.top import EncoderTop
 from hevc_tpu_torch.io.cfg import EncoderConfig, parse_cfg_file
 from test_torch_helpers import (INTRA_CFG, LDP_CFG, moving_frames,
                                 private_reference_native)  # noqa: F401
+from test_torch_helpers import one_torch_thread  # noqa: F401
 
 # name: (cfg, width, height, frames, bit depth)
 STREAMS = {"ldp": (LDP_CFG, 128, 80, 6, 8),

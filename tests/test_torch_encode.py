@@ -19,6 +19,7 @@ from hevc_tpu_torch.io.cfg import config_from_reference
 from test_torch_helpers import (LDP_CFG, REPO, moving_frames,
                                 no_jax_cache_writes,
                                 private_reference_native)  # noqa: F401
+from test_torch_helpers import one_torch_thread  # noqa: F401
 
 
 def _ref_cfg(w, h, n, chroma=420):

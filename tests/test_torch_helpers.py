@@ -72,6 +72,22 @@ def private_reference_native():
         yield
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run one test module's torch CPU work on a single thread, and restore
+    the thread count afterwards (import this fixture into the module).
+    pytest-xdist workers share the machine's cores; torch's OpenMP threads
+    in each of them oversubscribe it, and the many small tensor ops of the
+    kernels' plain versions then wait at every OpenMP barrier: with six
+    workers on eight cores, tests/test_torch_me_refine.py ran 25 times
+    slower than alone."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @contextlib.contextmanager
 def no_jax_cache_writes():
     """Keep JAX reference calls from writing the persistent compile cache

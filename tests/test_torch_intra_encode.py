@@ -18,6 +18,7 @@ from hevc_tpu_torch.ops import intra_screen
 from test_torch_helpers import (INTRA_CFG, moving_frames,
                                 no_jax_cache_writes,
                                 private_reference_native)  # noqa: F401
+from test_torch_helpers import one_torch_thread  # noqa: F401
 
 
 def _frames(n, w, h, chroma, bit_depth, seed):

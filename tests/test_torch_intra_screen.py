@@ -11,6 +11,7 @@ from hevc_tpu.ops import intra_screen as jscreen
 from hevc_tpu.ops import satd as jsatd
 from hevc_tpu_torch.ops import intra, intra_screen, satd
 from test_torch_helpers import moving_frames, no_jax_cache_writes
+from test_torch_helpers import one_torch_thread  # noqa: F401
 
 
 def _frame(seed):

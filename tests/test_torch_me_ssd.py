@@ -13,6 +13,7 @@ import torch
 from hevc_tpu.ops import me_mxu
 from hevc_tpu_torch.ops import me_ssd
 from test_torch_helpers import moving_frames, no_jax_cache_writes
+from test_torch_helpers import one_torch_thread  # noqa: F401
 
 PAD = 80
 W, H = 128, 96
@@ -137,10 +138,15 @@ def test_local_only_is_read_at_first_use(monkeypatch):
 
 
 def test_unported_options_raise():
+    """The mesh search is the one option still unported; weighted
+    prediction and the refine tables (ported) return grids, the refine
+    tables as a fifth entry."""
     orig = torch.zeros((64, 64), dtype=torch.uint8)
     ref = me_ssd.pad_ref_device(orig, PAD)
-    for kw in ({"refine": True}, {"wp": [(64, 2, 6)]},
-               {"axis_name": "blocks"}):
-        with pytest.raises(NotImplementedError):
-            me_ssd.me_grids_multi2_async(orig, [ref], 32, 16, 8, LAM_FP,
-                                         pad=PAD, **kw)
+    with pytest.raises(NotImplementedError):
+        me_ssd.me_grids_multi2_async(orig, [ref], 32, 16, 8, LAM_FP,
+                                     pad=PAD, axis_name="blocks")
+    for kw, n in (({"refine": True}, 5), ({"wp": [(64, 2, 6)]}, 4)):
+        out = me_ssd.me_grids_multi2_async(orig, [ref], 32, 16, 8, LAM_FP,
+                                           pad=PAD, **kw)()
+        assert [len(g) for g in out] == [n]

@@ -11,6 +11,7 @@ import torch
 from hevc_tpu.ops import me_mxu
 from hevc_tpu_torch.ops import me_ssd
 from test_torch_helpers import no_jax_cache_writes
+from test_torch_helpers import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("h,w,pad", [(24, 40, 8), (7, 5, 80), (1, 3, 2)])

@@ -9,6 +9,7 @@ import pytest
 from hevc_tpu_torch.decoder.top import DecoderTop
 from test_torch_helpers import (LDP_CFG, moving_frames, no_jax_cache_writes,
                                 private_reference_native)  # noqa: F401
+from test_torch_helpers import one_torch_thread  # noqa: F401
 
 # option -> extra CLI arguments; 4:0:0 inter takes the host fallback
 # encoder, whose JAX search compiles anew for every reference count (about

@@ -22,6 +22,7 @@ from hevc_tpu_torch.ops import me_ssd
 from test_torch_helpers import (CFG_DIR, at_depth, moving_frames,
                                 no_jax_cache_writes,
                                 private_reference_native)  # noqa: F401
+from test_torch_helpers import one_torch_thread  # noqa: F401
 
 RA = "encoder_randomaccess_main.cfg"
 RA10 = "encoder_randomaccess_main10.cfg"

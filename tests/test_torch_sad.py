@@ -22,6 +22,7 @@ from hevc_tpu_torch.ops import me, sad
 from test_torch_helpers import (SAD_KINDS, SAD_SHAPES, SEARCH_KINDS,
                                 SEARCH_LAMS, cost_table, no_jax_cache_writes,
                                 sad_range_case, search_case)
+from test_torch_helpers import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("n,h,w,R,seed", [

@@ -17,6 +17,7 @@ import torch
 from hevc_tpu.ops import sad_pallas
 from hevc_tpu_torch.ops import me_ssd, sad
 from test_torch_helpers import no_jax_cache_writes, planes_case
+from test_torch_helpers import one_torch_thread  # noqa: F401
 
 # (size, r, ny, nx, pad, kind): n = ny*nx < 128 everywhere (bucket padding)
 CASES = [

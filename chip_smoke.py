@@ -71,7 +71,10 @@ tie), holds the deep SSD table and deep window energies to theirs on the
 times the reference padding (one F.pad(mode="replicate")) beside the index
 gathers it replaced, on uint8 and int16 planes; and holds wp_apply and
 refine_tables (csrc/me_refine.cu) to theirs at 8 and 10 bits, the refine
-tables at the MVs the search finds and at MVs on the window's edges.
+tables at the MVs the search finds and at MVs on the window's edges, times
+wp_apply_multi at 1, 2 and 4 planes a launch beside a device copy of the
+same bytes, and each refine grid with its half stage alone (a probe entry
+that no encoder path calls).
 The input is synthetic moving texture made from --seed with numpy.
 The last two lines are a JSON object with every kernel's numbers and the
 result {"ok": true, "device": {...}}. Any failed phase exits non-zero.
@@ -745,15 +748,61 @@ def refine_ops(size, cy, cx):
     return float(len(cyx) * (half + satd) + quarter)
 
 
+def ptxas_entries(lib, key):
+    """(kernel, ptxas line) of every entry function of _build/<lib>.log
+    whose name holds `key`: the registers, stack and static shared memory
+    that nvcc -Xptxas -v printed for it. Names demangled by cu++filt."""
+    from hevc_tpu_torch import runtime
+    with open(os.path.join(runtime.BUILD_DIR, f"{lib}.log")) as fh:
+        lines = fh.read().splitlines()
+    names, out = [], []
+    for line in lines:
+        if "Compiling entry function" in line:
+            names.append(line.split("'")[1])
+        elif (("registers" in line or "spill" in line) and names
+              and key in names[-1]):
+            out.append((names[-1], line.split("ptxas info    :")[-1].strip()))
+    tool = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if out and os.path.exists(tool):
+        dem = subprocess.run([tool] + [n for n, _ in out], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(dem) == len(out):
+            out = [(d.rsplit("(", 1)[0], ln) for d, (_, ln) in zip(dem, out)]
+    return out
+
+
+def refine_launch(entry, orig, refp, gidx, *, size, r, ny, nx, pad, depth):
+    """One launch of a refine_tables C entry (the kernel or its half-stage
+    probe) into fresh outputs, on the current stream; no count."""
+    from hevc_tpu_torch import runtime
+    lib = runtime.kernel_lib("me_refine")
+    off = torch.empty(ny * nx, dtype=torch.int32, device=refp.device)
+    half = torch.empty_like(off)
+    rc = getattr(lib, entry)(
+        orig.data_ptr(), orig.stride(0), refp.data_ptr(), refp.stride(0),
+        refp.shape[0], refp.shape[1], refp.element_size(), gidx.data_ptr(),
+        size, r, ny, nx, pad, depth, off.data_ptr(), half.data_ptr(),
+        runtime.stream_of(refp))
+    if rc != 0:
+        raise AssertionError(f"{entry}: launch error {rc}")
+    return off, half
+
+
 def check_option_kernels(frames, results):
     """The search options' kernels (csrc/me_refine.cu) against their plain
     versions at 1080p shapes, exactly. wp_apply: the padded reference at 8
     and 10 bits under a fade's weight, a negative weight with a negative
-    offset, and denom 0. refine_tables: both grids of the main path at 8
-    and 10 bits, at the integer MVs the search finds (timed, at 8 bits) and
-    with every block's MV at a corner or edge of its window (+-r). The
-    bound of wp_apply is its bytes; that of refine_tables its operations
-    (refine_ops) over the 67 T/s 32-bit rate."""
+    offset, and denom 0, one plane a launch and four; timed at 1, 2 and 4
+    padded 8-bit planes a launch (the kernels line: 4), beside a
+    device-to-device copy of the same bytes, the floor of any elementwise
+    pass. refine_tables: both grids of the main path at 8 and 10 bits, at
+    the integer MVs the search finds (timed, at 8 bits, each grid and its
+    half stage alone through the probe entry) and with every block's MV at
+    a corner or edge of its window (+-r). The bound of wp_apply is its
+    bytes; that of refine_tables its operations (refine_ops) over the
+    67 T/s 32-bit rate. Prints each refine instance's registers (build
+    log) and dynamic shared memory."""
+    from hevc_tpu_torch import runtime
     from hevc_tpu_torch.ops import me_ssd
     dev = torch.device("cuda")
     h, w = frames[0].shape
@@ -761,7 +810,17 @@ def check_option_kernels(frames, results):
     acc = {"wp_apply": {"ms": 0.0, "q_ms": 0.0, "plain_ms": 0.0,
                         "err": 0, "bytes": 0.0, "ops": 0.0},
            "refine_tables": {"ms": 0.0, "q_ms": 0.0, "plain_ms": 0.0,
-                             "err": 0, "bytes": 0.0, "ops": 0.0}}
+                             "err": 0, "bytes": 0.0, "ops": 0.0,
+                             "half_q_ms": 0.0}}
+    lib = runtime.kernel_lib("me_refine")
+    for name, line in ptxas_entries("me_refine", "kernel"):
+        log(f"  ptxas {name}: {line}")
+    for size in (32, 16):
+        for wide in (0, 1):
+            log(f"  refine_tables {size}x{size}{' WIDE' if wide else ''}: "
+                f"{lib.hevc_refine_tables_smem(size, wide)} bytes of dynamic "
+                f"shared memory a thread block")
+    by_planes = {}
     for bd in (8, 10):
         conv = (lambda p: p) if bd == 8 else (lambda p: deep_plane(p, bd))
         orig = torch.from_numpy(conv(frames[1])).to(dev)
@@ -777,13 +836,47 @@ def check_option_kernels(frames, results):
                 raise AssertionError("wp_apply disagrees with its plain "
                                      "version")
             a["err"] = max(a["err"], e)
+        planes4 = [refp, refp.flip(0).contiguous(), refp.roll(7, 1),
+                   refp.flip(1).contiguous()]
+        wps4 = list(wps) + [(1, 0, 0)]
+        got = me_ssd.wp_apply_multi(planes4, wps4, bd)
+        e = max(max_abs_err(x, y) for x, y in zip(
+            got, me_ssd.wp_apply_multi_plain(planes4, wps4, bd)))
+        log(f"  wp_apply_multi {bd}-bit, 4 planes {tuple(refp.shape)}: "
+            f"max_abs_err {e}")
+        if e != 0:
+            raise AssertionError("wp_apply_multi disagrees with its plain "
+                                 "version")
         if bd == 8:
-            fn = lambda: me_ssd.wp_apply(refp, wps[0], bd)  # noqa: E731
-            a["ms"], a["q_ms"] = cuda_ms(fn, 20), cuda_ms(fn, 50, queued=True)
-            a["plain_ms"] = cuda_ms(
-                lambda: me_ssd.wp_apply_plain(refp, wps[0], bd), 5)
-            a["bytes"] = 2.0 * refp.numel()
-            a["ops"] = 6.0 * refp.numel()  # mul, add, shift, add, 2 clamps
+            for k in (1, 2, 4):
+                pl, tr = planes4[:k], wps4[:k]
+                fn = lambda: me_ssd.wp_apply_multi(pl, tr, bd)  # noqa: E731
+                nbytes = 2.0 * sum(p.numel() for p in pl)
+                dst = torch.empty(k * refp.numel(), dtype=refp.dtype,
+                                  device=dev)
+                src = torch.cat([p.reshape(-1) for p in pl])
+                d = {"ms": cuda_ms(fn, 20),
+                     "queued_ms": cuda_ms(fn, 50, queued=True),
+                     "copy_queued_ms": cuda_ms(lambda: dst.copy_(src), 50,
+                                               queued=True),
+                     "plain_ms": cuda_ms(lambda: me_ssd.wp_apply_multi_plain(
+                         pl, tr, bd), 5),
+                     "bound_ms": nbytes / HBM_BPS * 1e3, "bytes": nbytes}
+                by_planes[k] = d
+                del dst, src
+                log(f"  wp_apply_multi 8-bit, {k} plane(s) a launch "
+                    f"({nbytes / 1e6:.2f} MB): queued "
+                    f"{d['queued_ms']:.4f} ms, "
+                    f"host {d['ms']:.4f} ms, bound {d['bound_ms']:.4f} ms "
+                    f"(bytes, {100 * d['bound_ms'] / d['queued_ms']:.1f}%); "
+                    f"copy floor (device-to-device copy_ of the same bytes, "
+                    f"queued) {d['copy_queued_ms']:.4f} ms; plain "
+                    f"{d['plain_ms']:.3f} ms")
+            d = by_planes[4]
+            a.update(ms=d["ms"], q_ms=d["queued_ms"], plain_ms=d["plain_ms"],
+                     bytes=d["bytes"],
+                     ops=6.0 * 4 * refp.numel())  # mul, add, shift, add, clip
+        del planes4, got
         a = acc["refine_tables"]
         for size, r in ((32, 64), (16, 16)):
             ny, nx, nyx = h // size, w // size, 2 * r + 1
@@ -806,18 +899,29 @@ def check_option_kernels(frames, results):
                     raise AssertionError("refine_tables disagrees with its "
                                          "plain version")
                 a["err"] = max(a["err"], e)
-            if bd != 8:
-                continue
             # the half winners decide the quarter stage's phases
             ob, base_r, base_c = me_ssd._refine_setup(orig, found, **kwp)
-            _, cy, cx, _ = me_ssd._refine_half_plain(ob, phases, base_r,
-                                                     base_c, size)
+            _, cy, cx, hmin = me_ssd._refine_half_plain(ob, phases, base_r,
+                                                        base_c, size)
+            poff, phalf = refine_launch("hevc_refine_tables_half", orig, refp,
+                                        found, **kw)
+            e = max(max_abs_err(poff, (cy + 3) * 7 + cx + 3),
+                    max_abs_err(phalf, hmin))
+            if e != 0:
+                raise AssertionError("the refine_tables half-stage probe "
+                                     "disagrees with the plain half stage")
+            if bd != 8:
+                continue
             del phases
             fn = lambda: me_ssd.refine_tables(  # noqa: E731
                 orig, refp, found, **kw)
             ms, q_ms = cuda_ms(fn, 10), cuda_ms(fn, 20, queued=True)
+            half_q = cuda_ms(lambda: refine_launch(
+                "hevc_refine_tables_half", orig, refp, found, **kw), 20,
+                queued=True)
             a["ms"] += ms
             a["q_ms"] += q_ms
+            a["half_q_ms"] += half_q
             a["plain_ms"] += cuda_ms(lambda: me_ssd._refine_direct_plain(
                 orig, me_ssd._build_phases_plain(refp, bd), found, **kwp), 2)
             ops = refine_ops(size, cy, cx)
@@ -825,9 +929,13 @@ def check_option_kernels(frames, results):
             a["bytes"] += (refp.numel() + ny * nx * size * size
                            + 3 * 4 * ny * nx)
             log(f"  refine_tables 8-bit {size}x{size} r={r}: {ms:.4f} ms "
-                f"(queued {q_ms:.4f}), {ops / 1e9:.3f} G ops; half winners "
-                f"off the centre {int(((cy != 0) | (cx != 0)).sum())} of "
-                f"{ny * nx}")
+                f"(queued {q_ms:.4f}; its half stage alone, probe, queued "
+                f"{half_q:.4f}, so the quarter stage {q_ms - half_q:.4f}), "
+                f"{ops / 1e9:.3f} G ops (bound "
+                f"{ops / SCALAR32_OPS * 1e3:.4f} ms, "
+                f"{100 * ops / SCALAR32_OPS * 1e3 / q_ms:.1f}% queued); half "
+                f"winners off the centre {int(((cy != 0) | (cx != 0)).sum())} "
+                f"of {ny * nx}")
     for name, replaces in (("wp_apply", "hevc_tpu/ops/me_mxu.py:452"),
                            ("refine_tables", "hevc_tpu/ops/me_mxu.py:370")):
         a = acc[name]
@@ -838,12 +946,16 @@ def check_option_kernels(frames, results):
             "replaces": replaces, "max_abs_err": a["err"], "ms": a["ms"],
             "plain_ms": a["plain_ms"], "bound_ms": bms, "bound_by": by,
             "library_ms": None, "queued_ms": a["q_ms"]}
-        what = "both grids" if name == "refine_tables" else "the plane"
-        log(f"  {name} (8-bit, one reference, {what}): kernel_ms "
-            f"{a['ms']:.4f} (queued "
+        what = ("both grids" if name == "refine_tables"
+                else "4 planes a launch")
+        log(f"  {name} (8-bit, {what}): kernel_ms {a['ms']:.4f} (queued "
             f"{a['q_ms']:.4f}) plain_ms {a['plain_ms']:.3f} bound_ms "
             f"{bms:.4f} ({by}, {a['ops'] / 1e9:.3f} G ops, "
-            f"{a['bytes'] / 1e6:.2f} MB)")
+            f"{a['bytes'] / 1e6:.2f} MB); share of the bound (queued) "
+            f"{100 * bms / a['q_ms']:.1f}%")
+    results["refine_tables"]["half_queued_ms"] = acc["refine_tables"][
+        "half_q_ms"]
+    results["wp_apply"]["by_planes"] = by_planes
 
 
 def mma_probe(dev):

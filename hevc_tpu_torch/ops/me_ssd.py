@@ -22,14 +22,15 @@ correlation as three int8 ones) and the deep window energies, both CUDA
 kernels too, and the rate term scaled by `_lam_shift`.
 
 Two options of the search have kernels of their own (csrc/me_refine.cu).
-Weighted prediction (`wp_apply`) transforms each reference plane with its
-(w, o, denom) triple into a new plane that the search then runs on. The
-fractional-refine tables (`refine_tables`, HEVC_TPU_ME_REFINE=1) replay the
-host engine's half- then quarter-pel SATD refinement around every grid
-block's integer MV and return the packed quarter offset and the 3x3
-half-pel minimum of each block. Their plain versions (`wp_apply_plain`,
-`_build_phases_plain`, `_satd_of_tiles_plain`, `_refine_direct_plain`) are
-the reference's XLA programs written in torch.
+Weighted prediction (`wp_apply_multi`, one launch a picture) transforms
+each reference plane with its (w, o, denom) triple into a new plane that
+the search then runs on. The fractional-refine tables (`refine_tables`,
+HEVC_TPU_ME_REFINE=1) replay the host engine's half- then quarter-pel SATD
+refinement around every grid block's integer MV and return the packed
+quarter offset and the 3x3 half-pel minimum of each block. Their plain
+versions (`wp_apply_plain`, `wp_apply_multi_plain`, `_build_phases_plain`,
+`_satd_of_tiles_plain`, `_refine_direct_plain`) are the reference's XLA
+programs written in torch.
 """
 from __future__ import annotations
 
@@ -402,33 +403,70 @@ def wp_apply_plain(plane: torch.Tensor, wpv, depth: int) -> torch.Tensor:
     return v.clamp(0, (1 << depth) - 1).to(plane.dtype)
 
 
+# planes one wp_apply launch takes (kWpMax of csrc/me_refine.cu); a
+# picture with more references takes a launch per WP_MAX
+WP_MAX = 8
+
+
+def wp_apply_multi_plain(planes, wpvs, depth: int) -> list:
+    """Plain version of wp_apply_multi: wp_apply_plain of each plane."""
+    return [wp_apply_plain(p, w, depth) for p, w in zip(planes, wpvs)]
+
+
+def _wp_kernel_triple(wpv, depth: int):
+    """(w, d, off) of a (w, o, denom) triple as the kernel takes them."""
+    w, o, d = (int(v) for v in wpv)
+    off = o << max(depth - 8, 0)
+    if not (0 <= d <= 30 and -(1 << 31) <= w < (1 << 31)
+            and -(1 << 31) <= off < (1 << 31)):
+        raise ValueError(f"wp_apply: weight triple {wpv} out of range")
+    return w, d, off
+
+
+def wp_apply_multi(planes, wpvs, depth: int) -> list:
+    """The weighted-prediction transform of several reference planes, each
+    with its own (w, o, denom) triple, into new planes (the reference maps
+    wp_apply over a picture's references, me_mxu.py lax.map). On the card
+    one launch of the wp_apply kernel over all of them: at most WP_MAX
+    uint8 (8-bit) or int16 (9-14 bits) planes, of any size and alignment."""
+    planes = list(planes)
+    if len(wpvs) != len(planes):
+        raise ValueError("wp_apply_multi: one triple a plane")
+    if not planes:
+        return []
+    if planes[0].device.type == "cpu":
+        return wp_apply_multi_plain(planes, wpvs, depth)
+    if depth > 14:
+        raise NotImplementedError("wp_apply: 15-16-bit planes (int32) have "
+                                  "no kernel")
+    if len(planes) > WP_MAX:
+        raise ValueError(f"wp_apply_multi: {len(planes)} planes, at most "
+                         f"{WP_MAX} a launch")
+    dt = torch.uint8 if depth <= 8 else torch.int16
+    for p in planes:
+        runtime.require(p, dt, "wp_apply plane")
+    wdo = [_wp_kernel_triple(t, depth) for t in wpvs]
+    outs = [torch.empty_like(p) for p in planes]
+    desc = np.array([p.data_ptr() for p in planes]
+                    + [o.data_ptr() for o in outs]
+                    + [p.numel() for p in planes]
+                    + [t[i] for i in range(3) for t in wdo], np.int64)
+    lib = runtime.kernel_lib("me_refine")
+    rc = lib.hevc_wp_apply_multi(desc.ctypes.data, len(planes),
+                                 planes[0].element_size(), depth,
+                                 runtime.stream_of(planes[0]))
+    runtime.check(lib, rc, "wp_apply")
+    return outs
+
+
 def wp_apply(plane: torch.Tensor, wpv, depth: int) -> torch.Tensor:
     """Weighted-prediction transform of an integer reference plane (the
     integer-pel specialisation of spec 8.5.3.3.4.3): searching on the
     weighted plane makes the SSD the weighted distortion (reference
     TComRdCostWeightPrediction). wpv = (w, o, denom). Returns a new plane:
-    the cached reference is shared by other frames. On the card one launch
-    of the wp_apply kernel over a contiguous uint8 (8-bit) or int16 (9-14
-    bits) plane."""
-    if plane.device.type == "cpu":
-        return wp_apply_plain(plane, wpv, depth)
-    w, o, d = (int(v) for v in wpv)
-    if depth > 14:
-        raise NotImplementedError("wp_apply: 15-16-bit planes (int32) have "
-                                  "no kernel")
-    off = o << max(depth - 8, 0)
-    if not (0 <= d <= 30 and -(1 << 31) <= w < (1 << 31)
-            and -(1 << 31) <= off < (1 << 31)):
-        raise ValueError(f"wp_apply: weight triple {wpv} out of range")
-    runtime.require(plane, torch.uint8 if depth <= 8 else torch.int16,
-                    "wp_apply plane")
-    out = torch.empty_like(plane)
-    lib = runtime.kernel_lib("me_refine")
-    rc = lib.hevc_wp_apply(plane.data_ptr(), out.data_ptr(), plane.numel(),
-                           plane.element_size(), w, d, off, depth,
-                           runtime.stream_of(plane))
-    runtime.check(lib, rc, "wp_apply")
-    return out
+    the cached reference is shared by other frames. On the card a one-plane
+    launch of the wp_apply kernel (wp_apply_multi)."""
+    return wp_apply_multi([plane], [wpv], depth)[0]
 
 
 def wp_operand(wp, nref: int, npad: int) -> np.ndarray:
@@ -726,10 +764,11 @@ def me_grids_multi2_async(orig_dev, ref_devs, size: int, size2: int,
     padded slots' results were discarded, so only the real references are
     searched.
 
-    Under weighted prediction every reference is transformed by wp_apply
-    (None entries by the identity, as the reference's operand makes them)
-    and the refine tables are not computed: the host's WP-aware MC differs
-    from plane weighting. When only one of the two grids fits the picture,
+    Under weighted prediction every reference is transformed, all of them
+    in one wp_apply_multi launch before the search (None entries by the
+    identity, as the reference's operand makes them), and the refine
+    tables are not computed: the host's WP-aware MC differs from plane
+    weighting. When only one of the two grids fits the picture,
     the search runs unweighted and without tables, as the reference's
     single-grid fallback does."""
     _check_options(axis_name)
@@ -751,13 +790,15 @@ def me_grids_multi2_async(orig_dev, ref_devs, size: int, size2: int,
     dev = orig_dev.device
     lam_q8 = lam_q8_of(lam_fp)
     use_wp = wp is not None and any(t is not None for t in wp)
+    refs = list(ref_devs)
     if use_wp:
         refine = False  # host WP-aware MC differs from plane weighting
-        wpvs = wp_operand(wp, len(ref_devs), len(ref_devs))
+        wpvs = wp_operand(wp, len(refs), len(refs))
+        refs = [t for i in range(0, len(refs), WP_MAX)
+                for t in wp_apply_multi(refs[i:i + WP_MAX],
+                                        wpvs[i:i + WP_MAX], depth)]
     parts = []
-    for k, refp in enumerate(ref_devs):
-        if use_wp:
-            refp = wp_apply(refp, wpvs[k], depth)
+    for refp in refs:
         i1 = me_idx_frame(orig_dev, refp, _bits0_dev(r, dev), lam_q8,
                           size=size, r=r, ny=ny, nx=nx, pad=pad, depth=depth)
         i2 = me_idx_frame(orig_dev, refp, _bits0_dev(r2, dev), lam_q8,

@@ -71,9 +71,12 @@ _SIGNATURES = {
         "hevc_mma_probe": [_P, _I, _I, _P],
     },
     "me_refine": {
-        "hevc_wp_apply": [_P, _P, _L, _I, _I, _I, _I, _I, _P],
+        "hevc_wp_apply_multi": [_P, _I, _I, _I, _P],
         "hevc_refine_tables": [_P, _L, _P, _L, _I, _I, _I, _P, _I, _I, _I,
                                _I, _I, _I, _P, _P, _P],
+        "hevc_refine_tables_half": [_P, _L, _P, _L, _I, _I, _I, _P, _I, _I,
+                                    _I, _I, _I, _I, _P, _P, _P],
+        "hevc_refine_tables_smem": [_I, _I],
     },
     "intra_screen": {
         "hevc_intra_screen": [_P, _L, _I, _I, _P, _I, _I, _I, _I, _I, _P,

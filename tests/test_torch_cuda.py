@@ -669,6 +669,94 @@ def test_refine_tables_match_plain(dev, size, r, h, w, depth, mvs):
     _eq(half, exp[1])
 
 
+def _refine_check(dev, orig, refp, gidx, depth, **kw):
+    """One refine_tables launch against its plain version."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    o, rp = torch.from_numpy(orig).to(dev), torch.from_numpy(refp).to(dev)
+    g = torch.from_numpy(gidx.astype(np.int32)).to(dev)
+    before = runtime.launches["refine_tables"]
+    off, half = me_ssd.refine_tables(o, rp, g, depth=depth, **kw)
+    assert runtime.launches["refine_tables"] == before + 1
+    exp = me_ssd._refine_direct_plain(
+        o, me_ssd._build_phases_plain(rp, depth), g, **kw)
+    _eq(off, exp[0])
+    _eq(half, exp[1])
+
+
+@pytest.mark.parametrize("depth", [8, 12, 13, 14])
+@pytest.mark.parametrize("size", [16, 32])
+@pytest.mark.parametrize("r", [64, 78])
+def test_refine_tables_extreme_samples(dev, size, r, depth):
+    """A checkerboard of 0 and 2^depth - 1 in 4-sample cells, displaced in
+    the reference so that the positive taps meet the maximum (the
+    horizontal intermediate at its extremes, about 88 * 16383 >> 4 at 14
+    bits), at MVs on the window's corners and edges; r = 78 runs WIDE."""
+    from hevc_tpu_torch.ops import me_ssd
+    h, w = 96, 160
+    top = (1 << depth) - 1
+    yy, xx = np.mgrid[0:h + 16, 0:w + 16]
+    t = (((yy >> 2) + (xx >> 2)) & 1) * top
+    dt = me_ssd.me_dtype(depth)
+    orig = t[8:8 + h, 8:8 + w].astype(dt)
+    refp = np.pad(t[5:5 + h, 6:6 + w], PAD, mode="edge").astype(dt)
+    ny, nx, nyx = h // size, w // size, 2 * r + 1
+    ends = [(dy + r) * nyx + dx + r for dy in (-r, 0, r) for dx in (-r, 0, r)]
+    gidx = np.array([ends[b % 9] for b in range(ny * nx)])
+    _refine_check(dev, orig, refp, gidx, depth, size=size, r=r, ny=ny,
+                  nx=nx, pad=PAD)
+
+
+@pytest.mark.parametrize("size,depth", [(32, 8), (16, 8), (32, 10),
+                                        (16, 10)])
+def test_refine_tables_many_blocks(dev, size, depth):
+    """A 2160x3840 grid: far more search blocks (8100 of 32x32, 32400 of
+    16x16) than the card holds at once."""
+    h, w = 2160, 3840
+    orig, refp = _refine_planes(h, w, depth, seed=size + depth)
+    ny, nx, r = h // size, w // size, 16
+    rng = np.random.default_rng(size)
+    gidx = rng.integers(0, (2 * r + 1) ** 2, ny * nx)
+    _refine_check(dev, orig, refp, gidx, depth, size=size, r=r, ny=ny,
+                  nx=nx, pad=PAD)
+
+
+@pytest.mark.parametrize("depth", [8, 10, 12, 14])
+@pytest.mark.parametrize("count", [1, 2, 4, 8])
+def test_wp_apply_multi_matches_plain(dev, count, depth):
+    """One launch over `count` planes against the plain version: padded
+    1080p planes, an odd-sized plane (the one-by-one tail), views that
+    start at an odd offset (the unaligned path) and identity triples."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    rng = np.random.default_rng(count * 16 + depth)
+    dt = me_ssd.me_dtype(depth)
+    shapes = [(1240, 2080), (37, 53), (64, 96), (1240, 2080), (31, 17),
+              (64, 96), (8, 8), (1240, 2080)][:count]
+    planes = []
+    for k, (h, w) in enumerate(shapes):
+        big = torch.from_numpy(rng.integers(0, 1 << depth, h * w + 1).astype(
+            dt)).to(dev)
+        planes.append((big[1:] if k % 3 == 2 else big[:-1]).view(h, w))
+    triples = [(45, 12, 6), (1, 0, 0), (-20, 7, 3), (255, 127, 7),
+               (1, 0, 0), (0, 9, 2), (-128, -128, 7), (7, -3, 0)][:count]
+    before = runtime.launches["wp_apply"]
+    got = me_ssd.wp_apply_multi(planes, triples, depth)
+    assert runtime.launches["wp_apply"] == before + 1
+    exp = me_ssd.wp_apply_multi_plain(planes, triples, depth)
+    assert len(got) == count
+    for g, e, p in zip(got, exp, planes):
+        assert g.dtype == p.dtype and g.shape == p.shape
+        _eq(g, e)
+
+
+def test_wp_apply_multi_rejects_too_many_planes(dev):
+    from hevc_tpu_torch.ops import me_ssd
+    planes = [torch.zeros((16, 16), dtype=torch.uint8, device=dev)] * 9
+    with pytest.raises(ValueError):
+        me_ssd.wp_apply_multi(planes, [(1, 0, 0)] * 9, 8)
+
+
 def test_refine_and_wp_reject_bad_arguments(dev):
     from hevc_tpu_torch.ops import me_ssd
     plane = torch.zeros((120, 140), dtype=torch.int32, device=dev)

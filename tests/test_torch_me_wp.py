@@ -1,5 +1,5 @@
 """Weighted prediction in the integer motion search: hevc_tpu_torch's
-ops/me_ssd.wp_apply (plain version, and the host twin
+ops/me_ssd.wp_apply and wp_apply_multi (plain versions, and the host twin
 encoder/native_frame.wp_apply_np) against hevc_tpu's me_mxu.wp_apply, the
 search on the weighted reference against hevc_tpu's, and fade encodes with
 WeightedPredP=1 (8-bit low-delay P) and WeightedPredB=1 (RA-Main10)
@@ -53,6 +53,31 @@ def test_wp_apply_equals_reference(depth):
         np.testing.assert_array_equal(wp_apply_np(plane, wpv, depth), ref)
         np.testing.assert_array_equal(jax_wp_apply_np(plane, wpv, depth),
                                       ref)
+
+
+@pytest.mark.parametrize("depth", [8, 10, 12])
+def test_wp_apply_multi_equals_reference(depth):
+    """wp_apply_multi (its plain version here) against the reference's map
+    of me_mxu.wp_apply over stacked planes with per-plane triples
+    (me_mxu.py lax.map(one_wp, ...)), the identity among them."""
+    import jax
+    rng = np.random.default_rng(depth + 1)
+    dt = me_ssd.me_dtype(depth)
+    planes = rng.integers(0, 1 << depth, (len(TRIPLES), 40, 56)).astype(dt)
+    wpvs = np.array(TRIPLES, np.int32)
+    with no_jax_cache_writes():
+        ref = np.asarray(jax.lax.map(
+            lambda a: me_mxu.wp_apply(a[0], a[1], depth),
+            (jnp.asarray(planes), jnp.asarray(wpvs))))
+    got = me_ssd.wp_apply_multi([torch.from_numpy(p) for p in planes],
+                                TRIPLES, depth)
+    assert len(got) == len(TRIPLES)
+    for g, e in zip(got, ref):
+        assert g.dtype == torch.from_numpy(planes[0]).dtype
+        np.testing.assert_array_equal(g.numpy(), e)
+    np.testing.assert_array_equal(
+        me_ssd.wp_apply_multi_plain([torch.from_numpy(planes[1])],
+                                    [TRIPLES[1]], depth)[0].numpy(), ref[1])
 
 
 def test_wp_operand_equals_reference():
@@ -124,6 +149,26 @@ def test_me_grids_multi2_weighted_equals_reference():
             np.testing.assert_array_equal(x, y)
 
 
+def test_me_grids_multi2_weighted_three_refs_equals_reference():
+    """Three references with a triple each (one the identity), searched
+    after one wp_apply_multi over all of them: the grids equal hevc_tpu's
+    me_grids_multi2(wp=...)."""
+    cur, refp = _fade_pair(8, h=128, w=192)
+    refs = [refp, np.roll(refp, 2, axis=1), np.roll(refp, -3, axis=0)]
+    wp = [(38, -50, 6), None, (45, 12, 6)]
+    with no_jax_cache_writes():
+        ref = me_mxu.me_grids_multi2(
+            jnp.asarray(cur), [jnp.asarray(r) for r in refs], 32, 16, 12,
+            60000, pad=PAD, depth=8, wp=wp)
+    got = me_ssd.me_grids_multi2(
+        torch.from_numpy(cur), [torch.from_numpy(r) for r in refs], 32, 16,
+        12, 60000, pad=PAD, depth=8, wp=wp)
+    assert [len(g) for g in got] == [len(g) for g in ref] == [4, 4, 4]
+    for a, b in zip(got, ref):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+
+
 def _fade_frames(n, w, h, depth, seed=11):
     """n pictures [Y, Cb, Cr] of blocky texture panning by (3, 2) under a
     gain ramp (1 - 0.12 t), chroma flat; at `depth` bits (int16 above 8)."""
@@ -151,12 +196,12 @@ def test_fade_encode_stream_identical(monkeypatch, name, w, h, n, depth):
     references (wp_apply with non-identity triples), and the streams are
     byte-identical; every picture's hash checks."""
     weighted = []
-    real = me_ssd.wp_apply
+    real = me_ssd.wp_apply_multi
 
-    def spy(plane, wpv, depth):
-        weighted.append(tuple(int(v) for v in wpv) != (1, 0, 0))
-        return real(plane, wpv, depth)
-    monkeypatch.setattr(me_ssd, "wp_apply", spy)
+    def spy(planes, wpvs, depth):
+        weighted.extend(tuple(int(v) for v in t) != (1, 0, 0) for t in wpvs)
+        return real(planes, wpvs, depth)
+    monkeypatch.setattr(me_ssd, "wp_apply_multi", spy)
     cfg = jax_parse_cfg_file(os.path.join(CFG_DIR, name), JaxEncoderConfig())
     cfg.width, cfg.height, cfg.frames_to_encode = w, h, n
     cfg.input_bit_depth = cfg.internal_bit_depth

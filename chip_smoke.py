@@ -4,7 +4,8 @@
 
 Phases, each printed on its own line with its seconds:
   1. build the CUDA kernel libraries (nvcc, from hevc_tpu_torch/csrc) and
-     the native entropy/CU-engine library (make); count the VABSDIFF4
+     the native entropy/CU-engine library (make) with its high-bit-depth
+     build for 15-16-bit video (make hbd); count the VABSDIFF4
      instructions of each SAD kernel (the fused full search among them) in
      cuobjdump's SASS;
   2. hold every kernel against its plain PyTorch version on the card, at
@@ -56,10 +57,23 @@ Phases, each printed on its own line with its seconds:
      WeightedPredP=1, an RA-Main10 fade with WeightedPredB=1) and with the
      refine tables (LDP, the default lookahead) on the card and on the CPU:
      each pair of streams must match;
-  8. decode every stream of phases 3-7d with the port's own decoder: every
+ 7e. encode 1920x1080 high-throughput 4:4:4 intra (HM's
+     encoder_intra_high_throughput_rext settings, 10-bit internal, 3 frames
+     of 8-bit 4:4:4 input) through the CLI entry point on the card, the
+     launch counters reset just before it; then 416x240 4:4:4 on the card
+     and on the CPU: the streams must match;
+ 7f. encode 1920x1080 random access at 16 bits (HM's
+     encoder_randomaccess_main_rext settings, the IDR and one GOP of 8):
+     the int32 instances of the prescreen and the deep search run, and the
+     8-bit search kernels do not;
+ 7g. encode 416x240 at 16 bits on the card and on the CPU: intra, low-delay
+     B and random access under the Main-RExt cfgs, and an LDP fade with
+     WeightedPredP=1 (the int32 wp_apply): each pair of streams must match;
+  8. decode every stream of phases 3-7g with the port's own decoder: every
      picture's MD5 SEI must check and the picture counts must match;
-  9. encode 4 LDP (without and with the refine tables), 2 all-intra and 9
-     RA-Main10 1080p frames under
+  9. encode 4 LDP (without and with the refine tables), 2 all-intra, 9
+     RA-Main10, 2 high-throughput 4:4:4 intra and 9 16-bit RA 1080p frames
+     under
      torch.profiler: the device time of every kernel and the device's busy
      share of each encode's wall time (phases 3, 6 and 7b keep their
      unprofiled frames/s);
@@ -74,7 +88,10 @@ refine_tables (csrc/me_refine.cu) to theirs at 8 and 10 bits, the refine
 tables at the MVs the search finds and at MVs on the window's edges, times
 wp_apply_multi at 1, 2 and 4 planes a launch beside a device copy of the
 same bytes, and each refine grid with its half stage alone (a probe entry
-that no encoder path calls).
+that no encoder path calls). It holds the int32 instances of 15-16-bit
+video (intra_screen, ssd_table_deep with box_energies_deep, wp_apply) to
+their plain versions on the frames at 16 and 15 bits and on planes of
+extreme samples, and times each at 16 bits.
 The input is synthetic moving texture made from --seed with numpy.
 The last two lines are a JSON object with every kernel's numbers and the
 result {"ok": true, "device": {...}}. Any failed phase exits non-zero.
@@ -105,6 +122,17 @@ RA10_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
                         "encoder_randomaccess_main10.cfg")
 LDB_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
                        "encoder_lowdelay_main.cfg")
+# the range extensions: high-throughput 4:4:4 intra (10-bit internal), and
+# the Main-RExt intra, low-delay B and random-access settings that 16-bit
+# video runs under
+HT_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
+                      "encoder_intra_high_throughput_rext.cfg")
+INTRA_REXT_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
+                              "encoder_intra_main_rext.cfg")
+LDB_REXT_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
+                            "encoder_lowdelay_main_rext.cfg")
+RA_REXT_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
+                           "encoder_randomaccess_main_rext.cfg")
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8
 # tensor-core ops/s, and 32-bit scalar (non-tensor-core) ops/s
 HBM_BPS = 3.35e12
@@ -135,6 +163,13 @@ HD_INTRA_MD5_SEED1 = "825b596a8ee1b95f8cc1340e97ffb230"
 # (8-bit) and Main10
 HD_RA_MD5_SEED1 = "0d2387822770024889ce918ccb870e8c"
 HD_RA10_MD5_SEED1 = "76a44119fc94b6ae0e1bf499df94b4e8"
+# frames of the 1080p high-throughput 4:4:4 intra encode
+N_444 = 3
+# md5 of the 1080p high-throughput 4:4:4 intra stream (3 frames, 8-bit
+# input) and of the 1080p 16-bit random-access stream (9 frames) for
+# --seed 1
+HD_444_MD5_SEED1 = "3e2d6f3c0152158d86662ed3b03743e1"
+HD_RA16_MD5_SEED1 = "c2dc11b8e614a04d51b070cd6695eed3"
 
 
 def log(msg):
@@ -189,18 +224,22 @@ def clip_frames(w, h, n, seed, chroma=420):
         y[oy:oy + s, ox:ox + s] = fg
         if chroma == 420:
             u, v = y[::2, ::2], y[1::2, ::2]
-        else:
+        elif chroma == 422:
             u, v = y[:, ::2], y[:, 1::2]
+        else:  # 4:4:4: full-size chroma, the second mirrored
+            u, v = y, y[:, ::-1]
         frames.append([y, (u // 2 + 40).astype(np.uint8),
                        (v // 3 + 70).astype(np.uint8)])
     return frames
 
 
 def deep_plane(p, bit_depth):
-    """A uint8 plane at bit_depth > 8, int16: each sample s becomes
+    """A uint8 plane at bit_depth > 8, int16 (int32 above 14 bits, as the
+    encoder carries such samples): each sample s becomes
     s << k | s & (2^k - 1), k = bit_depth - 8."""
     k = bit_depth - 8
-    return ((p.astype(np.int16) << k) | (p & ((1 << k) - 1))).astype(np.int16)
+    dt = np.int16 if bit_depth <= 14 else np.int32
+    return ((p.astype(dt) << k) | (p & ((1 << k) - 1))).astype(dt)
 
 
 def write_clip(path, w, h, n, seed, chroma=420, bit_depth=8, fade=0.0):
@@ -440,6 +479,9 @@ def check_kernels(frames, seed, results):
     time_torch_ops(frames, dev)
     check_intra_screen(frames, results)
     check_deep_kernels(frames, results)
+    # the int32 instances of 15-16-bit video
+    check_intra_screen(frames, results, wide=True)
+    check_deep_kernels(frames, results, wide=True)
     check_option_kernels(frames, results)
 
     mma_probe(dev)
@@ -454,8 +496,8 @@ def time_torch_ops(frames, dev):
     """Time of the main path's device work that is a torch call, not a
     kernel of this package (the reference ran it as an XLA program): the
     reference padding (_pad_edge_dev, one F.pad(mode="replicate")) on the
-    uint8 plane and on its 10-bit int16 copy, each held to the edge
-    extension by two index gathers. Logged only."""
+    uint8 plane and on its 10-bit int16 and 16-bit int32 copies, each held
+    to the edge extension by two index gathers. Logged only."""
     from hevc_tpu_torch.ops import me_ssd
 
     def gathers(p):
@@ -466,7 +508,8 @@ def time_torch_ops(frames, dev):
         return p.index_select(0, rows).index_select(1, cols)
     h, w = frames[0].shape
     for plane in (torch.from_numpy(frames[0]).to(dev),
-                  torch.from_numpy(deep_plane(frames[0], 10)).to(dev)):
+                  torch.from_numpy(deep_plane(frames[0], 10)).to(dev),
+                  torch.from_numpy(deep_plane(frames[0], 16)).to(dev)):
         if not torch.equal(me_ssd._pad_edge_dev(plane, PAD), gathers(plane)):
             raise AssertionError(f"_pad_edge_dev disagrees with the index "
                                  f"gathers on the {plane.dtype} plane")
@@ -479,12 +522,14 @@ def time_torch_ops(frames, dev):
             f"bound {bms:.4f} ms ({by}); equal")
 
 
-def check_intra_screen(frames, results):
+def check_intra_screen(frames, results, wide=False):
     """The intra prescreen kernel (all four block sizes, one launch each)
     against its plain version (the torch ops it replaces) on 1080p planes:
     the 8-bit frame, the same at 10 bits, and the frame with flat 64x64
     patches where many modes tie. The mode costs are the encoder's at QP
-    32. Exact equality; the 8-bit plane is timed."""
+    32. Exact equality; the 8-bit plane is timed. wide: the int32
+    instance instead, on the frames at 16 and 15 bits and at 16 bits with
+    64x64 patches of 0, 2^15 and 2^16 - 1 (the 16-bit plane is timed)."""
     from hevc_tpu_torch.ops import intra_screen
     dev = torch.device("cuda")
     h, w = frames[0].shape
@@ -492,17 +537,28 @@ def check_intra_screen(frames, results):
     lam_tab = torch.tensor([round(sqrt_lam * intra_screen._mode_bits_est(m))
                             for m in range(35)], dtype=torch.int32,
                            device=dev)
-    flat = frames[1].astype(np.int16)
-    for y0 in range(0, h - 64, 128):
-        for x0 in range(0, w - 64, 128):
-            flat[y0:y0 + 64, x0:x0 + 64] = 60 + (y0 + x0) // 16
-    planes = {"8-bit": (frames[0].astype(np.int16), 8),
-              "10-bit": ((frames[1].astype(np.int16) << 2)
-                         | (frames[0].astype(np.int16) & 3), 10),
-              "8-bit flat regions": (flat, 8)}
+    if wide:
+        ext = deep_plane(frames[0], 16)
+        for k, y0 in enumerate(range(0, h - 64, 128)):
+            for j, x0 in enumerate(range(0, w - 64, 128)):
+                ext[y0:y0 + 64, x0:x0 + 64] = (0, 1 << 15, 65535)[(k + j) % 3]
+        planes = {"16-bit": (deep_plane(frames[0], 16), 16),
+                  "15-bit": (deep_plane(frames[1], 15), 15),
+                  "16-bit extremes": (ext, 16)}
+        timed_name, key, pdt = "16-bit", "intra_screen_int32", np.int32
+    else:
+        flat = frames[1].astype(np.int16)
+        for y0 in range(0, h - 64, 128):
+            for x0 in range(0, w - 64, 128):
+                flat[y0:y0 + 64, x0:x0 + 64] = 60 + (y0 + x0) // 16
+        planes = {"8-bit": (frames[0].astype(np.int16), 8),
+                  "10-bit": ((frames[1].astype(np.int16) << 2)
+                             | (frames[0].astype(np.int16) & 3), 10),
+                  "8-bit flat regions": (flat, 8)}
+        timed_name, key, pdt = "8-bit", "intra_screen", np.int16
     err = 0
     for name, (y, bd) in planes.items():
-        p = np.full((h + 1, w + 1), 1 << (bd - 1), np.int16)
+        p = np.full((h + 1, w + 1), 1 << (bd - 1), pdt)
         p[1:, 1:] = y
         plane = torch.from_numpy(p).to(dev)
         got = intra_screen.intra_screen(plane, lam_tab, bit_depth=bd)
@@ -518,18 +574,18 @@ def check_intra_screen(frames, results):
             raise AssertionError(f"intra_screen disagrees with its plain "
                                  f"version on the {name} plane")
         err = max(err, e)
-        if name == "8-bit":
-            timed = (plane, got)
-    plane, got = timed
+        if name == timed_name:
+            timed = (plane, got, bd)
+    plane, got, tbd = timed
     fn = lambda: intra_screen.intra_screen(  # noqa: E731
-        plane, lam_tab, bit_depth=8)
+        plane, lam_tab, bit_depth=tbd)
     ms, q_ms = cuda_ms(fn, 20), cuda_ms(fn, 20, queued=True)
     pms = cuda_ms(lambda: intra_screen.intra_screen_plain(
-        plane, lam_tab, bit_depth=8), 3)
+        plane, lam_tab, bit_depth=tbd), 3)
     per_size = {1 << lg: cuda_ms(lambda lg=lg: intra_screen.intra_screen(
-        plane, lam_tab, bit_depth=8, log2s=(lg,)), 20, queued=True)
+        plane, lam_tab, bit_depth=tbd, log2s=(lg,)), 20, queued=True)
         for lg in (2, 3, 4, 5)}
-    log("  intra_screen per launch, queued (ms): " + ", ".join(
+    log(f"  {key} per launch, queued (ms): " + ", ".join(
         f"{n}x{n} {t:.4f}" for n, t in per_size.items()))
     # operations per predicted sample and mode: the angular blend (6), the
     # difference (1), the butterflies (2 log2 of the tile side), abs and
@@ -537,21 +593,21 @@ def check_intra_screen(frames, results):
     ops = sum(35.0 * b * n * n * (9 + (6 if n >= 8 else 4))
               for (_, n, _, _, _, b) in intra_screen._sizes(
                   w, h, (2, 3, 4, 5)))
-    nbytes = plane.numel() * 2 + 35 * 4 + got[0].numel() + \
-        got[1].numel() * 4
+    nbytes = plane.numel() * plane.element_size() + 35 * 4 + \
+        got[0].numel() + got[1].numel() * 4
     bms, by = bound_ms(nbytes, ops, SCALAR32_OPS)
-    results["intra_screen"] = {
-        "name": "intra_screen", "route": "cuda",
+    results[key] = {
+        "name": key, "route": "cuda",
         "source": "hevc_tpu_torch/csrc/intra_screen.cu",
         "replaces": "hevc_tpu/ops/intra_screen.py:96", "max_abs_err": err,
         "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
-        "library_ms": None}
-    log(f"  intra_screen (one 1080p picture, four launches): kernel_ms "
+        "library_ms": None, "queued_ms": q_ms}
+    log(f"  {key} ({timed_name}, one 1080p picture, four launches): kernel_ms "
         f"{ms:.4f} (queued {q_ms:.4f}) plain_ms (torch ops) {pms:.3f} "
         f"bound_ms {bms:.4f} ({by}, {ops / 1e9:.2f} G ops)")
 
 
-def check_deep_kernels(frames, results):
+def check_deep_kernels(frames, results, wide=False):
     """The deep search kernels (ssd_table_deep and the box_energies_deep
     launch it makes first) against their plain versions at the 1080p shapes
     of both grids of the Main10 path: the two frames at 10 and at 12 bits,
@@ -563,7 +619,8 @@ def check_deep_kernels(frames, results):
     unpadded count, and the library yardsticks, timed only: cuDNN's
     float32 grouped convolution of the centred samples (the correlation)
     and avg_pool2d of the float32 squares, whose sums above 2^24 are not
-    exact."""
+    exact. wide: the int32 instances instead, at 16 and 15 bits and at 16
+    bits with flat patches (the 16-bit planes timed)."""
     from hevc_tpu_torch import runtime
     from hevc_tpu_torch.ops import me_ssd
     dev = torch.device("cuda")
@@ -573,8 +630,10 @@ def check_deep_kernels(frames, results):
         for y0 in range(0, h - 64, 128):
             for x0 in range(0, w - 64, 128):
                 f[y0:y0 + 64, x0:x0 + 64] = 60 + (y0 + x0) // 16
-    cases = {"10-bit": (frames, 10), "12-bit": (frames, 12),
-             "10-bit flat regions": (flat, 10)}
+    tbd, obd = (16, 15) if wide else (10, 12)
+    cases = {f"{tbd}-bit": (frames, tbd), f"{obd}-bit": (frames, obd),
+             f"{tbd}-bit flat regions": (flat, tbd)}
+    sfx = "_int32" if wide else ""
     names = ("ssd_table_deep", "box_energies_deep")
     acc = {k: {"ms": 0.0, "q_ms": 0.0, "plain_ms": 0.0, "bytes_b": 0.0,
                "ops_b": 0.0, "err": 0, "lib": 0.0} for k in names}
@@ -611,7 +670,7 @@ def check_deep_kernels(frames, results):
             acc["ssd_table_deep"]["err"] = max(acc["ssd_table_deep"]["err"],
                                                e_ssd)
             del box_p, ssd_p
-            if case != "10-bit":
+            if case != f"{tbd}-bit":
                 continue
             t = {}
             c = acc["box_energies_deep"]
@@ -631,7 +690,8 @@ def check_deep_kernels(frames, results):
                 f"{lib_ms:.4f} ms (float32, not exact here: max_abs_err "
                 f"{e_lib:g} against the kernel)")
             del sq
-            c["bytes_b"] += roi.numel() * 2 + box_k.numel() * 4
+            esz = roi.element_size()
+            c["bytes_b"] += roi.numel() * esz + box_k.numel() * 4
             # shift, centre and square per input sample, two sliding-sum
             # steps per output
             c["ops_b"] += 3.0 * roi.numel() + 4.0 * box_k.numel()
@@ -642,15 +702,17 @@ def check_deep_kernels(frames, results):
             stream = runtime.stream_of(roi)
             rcs = []
 
+            entry = "hevc_ssd_table_deep32" if wide else "hevc_ssd_table_deep"
+
             def alone():
-                rcs.append(lib.hevc_ssd_table_deep(
+                rcs.append(getattr(lib, entry)(
                     roi.data_ptr(), roi.stride(0), orig.data_ptr(),
                     orig.stride(0), box_k.data_ptr(), box_k.stride(0),
                     ssd_k.data_ptr(), size, r, ny, nx, shift, mid, stream))
             t_alone = cuda_ms(alone, 20, queued=True)
 
             def stage():  # the staging probe: the launch without products
-                rcs.append(lib.hevc_ssd_table_deep_stage(
+                rcs.append(getattr(lib, entry + "_stage")(
                     roi.data_ptr(), roi.stride(0), orig.data_ptr(),
                     orig.stride(0), box_k.data_ptr(), box_k.stride(0),
                     ssd_k.data_ptr(), size, r, ny, nx, shift, mid, stream))
@@ -669,7 +731,7 @@ def check_deep_kernels(frames, results):
                 f"unpadded")
             a["plain_ms"] += cuda_ms(
                 lambda: me_ssd._ssd_table_deep_plain(roi, orig, **kw), 2)
-            a["bytes_b"] += (roi.numel() * 2 + n * size * size * 2
+            a["bytes_b"] += (roi.numel() * esz + n * size * size * esz
                              + ssd_k.numel() * 4)
             # three int8 products, two operations a multiply-add
             a["ops_b"] += 3 * 2.0 * n * nyx * nyx * size * size
@@ -684,7 +746,8 @@ def check_deep_kernels(frames, results):
             for k, (ms, q_ms) in t.items():
                 acc[k]["ms"] += ms
                 acc[k]["q_ms"] += q_ms
-            log(f"  deep 10-bit {grid} ms (queued in brackets): " + ", ".join(
+            log(f"  deep {tbd}-bit {grid} ms (queued in brackets): "
+                + ", ".join(
                 f"{k} {ms:.4f} ({q_ms:.4f})" for k, (ms, q_ms) in t.items())
                 + f"; ssd_table_deep kernel alone ({t_alone:.4f})")
             del ssd_k, box_k, rc
@@ -694,18 +757,20 @@ def check_deep_kernels(frames, results):
              SCALAR32_OPS)):
         a = acc[name]
         bms, by = bound_ms(a["bytes_b"], a["ops_b"], rate)
-        results[name] = {
-            "name": name, "route": "cuda",
+        results[name + sfx] = {
+            "name": name + sfx, "route": "cuda",
             "source": "hevc_tpu_torch/csrc/me_ssd.cu", "replaces": replaces,
             "max_abs_err": a["err"], "ms": a["ms"], "plain_ms": a["plain_ms"],
             "bound_ms": bms, "bound_by": by, "library_ms": a["lib"],
             "queued_ms": a["q_ms"]}
-        log(f"  {name} (10-bit, one reference, both grids): kernel_ms "
+        log(f"  {name}{sfx} ({tbd}-bit, one reference, both grids): "
+            f"kernel_ms "
             f"{a['ms']:.4f} (queued {a['q_ms']:.4f}) plain_ms "
             f"{a['plain_ms']:.3f} bound_ms {bms:.4f} ({by}, "
             f"{a['ops_b'] / 1e9:.1f} G ops, {a['bytes_b'] / 1e6:.1f} MB) "
             f"library_ms {a['lib']:.4f}")
-    log(f"  ssd_table_deep kernel alone (10-bit, both grids, box plane "
+    log(f"  ssd_table_deep{sfx} kernel alone ({tbd}-bit, both grids, box "
+        f"plane "
         f"precomputed, queued): {alone_ms:.4f} ms; staging probe "
         f"{stage_ms:.4f} ms, products {alone_ms - stage_ms:.4f} ms")
 
@@ -821,7 +886,7 @@ def check_option_kernels(frames, results):
                 f"{lib.hevc_refine_tables_smem(size, wide)} bytes of dynamic "
                 f"shared memory a thread block")
     by_planes = {}
-    for bd in (8, 10):
+    for bd in (8, 10, 16):
         conv = (lambda p: p) if bd == 8 else (lambda p: deep_plane(p, bd))
         orig = torch.from_numpy(conv(frames[1])).to(dev)
         refp = me_ssd.pad_ref_device(torch.from_numpy(conv(frames[0])).to(
@@ -847,6 +912,33 @@ def check_option_kernels(frames, results):
         if e != 0:
             raise AssertionError("wp_apply_multi disagrees with its plain "
                                  "version")
+        if bd == 16:
+            # the int32 instance (15-16 bits): four padded planes a launch
+            nbytes = 2.0 * sum(p.numel() * 4 for p in planes4)
+            fn = lambda: me_ssd.wp_apply_multi(  # noqa: E731
+                planes4, wps4, bd)
+            dst = torch.empty(4 * refp.numel(), dtype=refp.dtype, device=dev)
+            src = torch.cat([p.reshape(-1) for p in planes4])
+            bms = nbytes / HBM_BPS * 1e3
+            d = {"ms": cuda_ms(fn, 20), "q_ms": cuda_ms(fn, 50, queued=True),
+                 "copy_q_ms": cuda_ms(lambda: dst.copy_(src), 50,
+                                      queued=True),
+                 "plain_ms": cuda_ms(lambda: me_ssd.wp_apply_multi_plain(
+                     planes4, wps4, bd), 5)}
+            del dst, src
+            results["wp_apply_int32"] = {
+                "name": "wp_apply_int32", "route": "cuda",
+                "source": "hevc_tpu_torch/csrc/me_refine.cu",
+                "replaces": "hevc_tpu/ops/me_mxu.py:452",
+                "max_abs_err": e, "ms": d["ms"], "plain_ms": d["plain_ms"],
+                "bound_ms": bms, "bound_by": "bytes", "library_ms": None,
+                "queued_ms": d["q_ms"], "copy_queued_ms": d["copy_q_ms"]}
+            log(f"  wp_apply_int32 16-bit, 4 planes a launch "
+                f"({nbytes / 1e6:.2f} MB): queued {d['q_ms']:.4f} ms, host "
+                f"{d['ms']:.4f} ms, bound {bms:.4f} ms (bytes, "
+                f"{100 * bms / d['q_ms']:.1f}%); copy floor (queued) "
+                f"{d['copy_q_ms']:.4f} ms; plain {d['plain_ms']:.3f} ms")
+            continue
         if bd == 8:
             for k in (1, 2, 4):
                 pl, tr = planes4[:k], wps4[:k]
@@ -1303,23 +1395,27 @@ def check_planes(orig, refp, lam_fp, rate, blks, areas, results):
 
 def profile_encodes(tmp, seed):
     """Phase 9: a 4-frame LDP (without and with the refine tables), a
-    2-picture all-intra and a 9-frame RA-Main10 (the IDR and one GOP of
-    eight, 10-bit) 1080p encode under
+    2-picture all-intra, a 9-frame RA-Main10 (the IDR and one GOP of
+    eight, 10-bit), a 2-picture high-throughput 4:4:4 intra and a 9-frame
+    16-bit random-access 1080p encode under
     torch.profiler with CUDA activity. Logs, per encode, every device
     activity by name (device ms in all, count) and the device's busy share
     of the encode's wall time (the union of the device intervals over the
     host clock around the encode)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for name, n, cfg, bd, env in (
-            ("prof_ldp", 4, LDP_CFG, 8, {}),
-            ("prof_ldp_refine", 4, LDP_CFG, 8, {"HEVC_TPU_ME_REFINE": "1"}),
-            ("prof_intra", 2, INTRA_CFG, 8, {}),
-            ("prof_ra10", N_RA, RA10_CFG, 10, {})):
+    for name, n, cfg, bd, env, chroma in (
+            ("prof_ldp", 4, LDP_CFG, 8, {}, 420),
+            ("prof_ldp_refine", 4, LDP_CFG, 8, {"HEVC_TPU_ME_REFINE": "1"},
+             420),
+            ("prof_intra", 2, INTRA_CFG, 8, {}, 420),
+            ("prof_ra10", N_RA, RA10_CFG, 10, {}, 420),
+            ("prof_444", 2, HT_CFG, 8, {}, 444),
+            ("prof_ra16", N_RA, RA_REXT_CFG, 16, {}, 420)):
         with env_set(env), profile(activities=[ProfilerActivity.CPU,
                                                ProfilerActivity.CUDA]) as prof:
             _, secs, _, _ = encode(tmp, name, 1920, 1080, n, seed, "cuda",
-                                   cfg=cfg, bit_depth=bd)
+                                   chroma=chroma, cfg=cfg, bit_depth=bd)
         del streams[name]
         dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if not dev:
@@ -1425,12 +1521,13 @@ streams = {}
 
 
 def check_hd_encode(stream, secs, out, frames, tmp, name, md5_seed1, seed,
-                    bit_depth=8):
+                    bit_depth=8, chroma=420, in_depth=None):
     """Log and check a 1080p encode: md5 (against its anchor for --seed 1),
-    start code, and finite recon PSNR above 25 dB."""
+    start code, and finite recon PSNR above 25 dB (bit_depth: the recon's,
+    in_depth: the input's where it differs)."""
     from hevc_tpu_torch.utils.timing import timers
     ps = psnr_y(frames, os.path.join(tmp, f"{name}_rec.yuv"), 1920, 1080,
-                bit_depth)
+                bit_depth, chroma, in_depth)
     fps_line = [ln for ln in out.splitlines() if "fps" in ln]
     md5 = hashlib.md5(stream).hexdigest()
     log(f"  {len(stream)} bytes, md5 {md5}"
@@ -1473,11 +1570,13 @@ def log_encode(name, env, stream, secs, out, sections, extra=""):
     log(f"    sections (s): {sections}")
 
 
-def psnr_y(frames, rec_path, w, h, bit_depth=8):
-    """Luma PSNR of each recon picture against the source (the 8-bit planes
-    write_clip returns, at bit_depth as it wrote them)."""
+def psnr_y(frames, rec_path, w, h, bit_depth=8, chroma=420, in_depth=None):
+    """Luma PSNR of each recon picture (bit_depth bits) against the source
+    (the 8-bit planes write_clip returns, at in_depth bits as it wrote
+    them, scaled to bit_depth as the encoder scales its input)."""
+    in_depth = in_depth or bit_depth
     rec = np.fromfile(rec_path, "<u2" if bit_depth > 8 else np.uint8)
-    fsz = w * h * 3 // 2
+    fsz = w * h * {420: 3, 422: 4, 444: 6}[chroma] // 2
     if rec.size != fsz * len(frames):
         raise AssertionError(f"recon holds {rec.size} samples, expected "
                              f"{fsz * len(frames)}")
@@ -1485,7 +1584,8 @@ def psnr_y(frames, rec_path, w, h, bit_depth=8):
     out = []
     for i, y in enumerate(frames):
         r = rec[i * fsz:i * fsz + w * h].reshape(h, w).astype(np.float64)
-        src = deep_plane(y, bit_depth) if bit_depth > 8 else y
+        src = deep_plane(y, in_depth) if in_depth > 8 else y
+        src = src.astype(np.int64) << (bit_depth - in_depth)
         mse = ((r - src) ** 2).mean()
         out.append(99.99 if mse == 0 else 10 * np.log10(peak ** 2 / mse))
     return out
@@ -1524,6 +1624,10 @@ def main():
             t0 = time.perf_counter()
             cabac.get_lib()
             log(f"  native library (make): {time.perf_counter() - t0:.2f} s")
+            t0 = time.perf_counter()
+            cabac.get_lib(True)
+            log(f"  native high-bit-depth library (make hbd, int32 "
+                f"samples): {time.perf_counter() - t0:.2f} s")
 
         with Phase("2 kernels vs plain at 1080p shapes"):
             frames = write_clip(os.path.join(tmp, "k.yuv"), 1920, 1080, 2,
@@ -1761,6 +1865,89 @@ def main():
                 if launched <= 0:
                     raise AssertionError(f"{name}: {key} was never launched")
 
+        with Phase("7e encode 1920x1080 high-throughput 4:4:4 intra on "
+                   "cuda; 416x240 cuda vs cpu"):
+            runtime.reset_launches()
+            timers.reset()
+            timers.enabled = True
+            stream, secs, out, frames = encode(
+                tmp, "hd_444", 1920, 1080, N_444, args.seed, "cuda",
+                chroma=444, recon=True, cfg=HT_CFG)
+            timers.enabled = False
+            ht_launches = dict(runtime.launches)
+            check_hd_encode(stream, secs, out, frames, tmp, "hd_444",
+                            HD_444_MD5_SEED1, args.seed, bit_depth=10,
+                            chroma=444, in_depth=8)
+            log(f"  launches: {ht_launches}")
+            if ht_launches["intra_screen"] < N_444:
+                raise AssertionError(
+                    f"intra_screen launched {ht_launches['intra_screen']} "
+                    f"times for {N_444} pictures")
+            kw = dict(chroma=444, cfg=HT_CFG)
+            s_gpu, t_gpu, _, _ = encode(tmp, "cif_444_gpu", 416, 240, N_444,
+                                        args.seed, "cuda", **kw)
+            s_cpu, t_cpu, _, _ = encode(tmp, "cif_444_cpu", 416, 240, N_444,
+                                        args.seed, "cpu", **kw)
+            log(f"  416x240 4:4:4: cuda {len(s_gpu)} bytes md5 "
+                f"{hashlib.md5(s_gpu).hexdigest()} {t_gpu:.2f} s; cpu "
+                f"{len(s_cpu)} bytes md5 {hashlib.md5(s_cpu).hexdigest()} "
+                f"{t_cpu:.2f} s")
+            if s_gpu != s_cpu:
+                raise AssertionError("4:4:4 cuda and cpu streams differ")
+
+        with Phase("7f encode 1920x1080 random access at 16 bits on cuda"):
+            runtime.reset_launches()
+            timers.reset()
+            timers.enabled = True
+            stream, secs, out, frames = encode(
+                tmp, "hd_ra16", 1920, 1080, N_RA, args.seed, "cuda",
+                recon=True, cfg=RA_REXT_CFG, bit_depth=16)
+            timers.enabled = False
+            ra16_launches = dict(runtime.launches)
+            check_hd_encode(stream, secs, out, frames, tmp, "hd_ra16",
+                            HD_RA16_MD5_SEED1, args.seed, bit_depth=16)
+            log(f"  launches: {ra16_launches}")
+            for k in ("ssd_table_deep", "box_energies_deep",
+                      "argmin_two_pass", "intra_screen"):
+                if ra16_launches[k] <= 0:
+                    raise AssertionError(f"hd_ra16: {k} was never launched")
+            for k in ("ssd_table", "box_energies"):
+                if ra16_launches[k] != 0:
+                    raise AssertionError(f"hd_ra16: {k} launched at 16 bits")
+            # at 16 bits every one of these launches is an int32 instance
+            for k in ("ssd_table_deep", "box_energies_deep", "intra_screen"):
+                results[k + "_int32"]["launches"] = ra16_launches[k]
+
+        with Phase("7g 416x240 16-bit intra, low-delay B, random access and "
+                   "weighted prediction cuda vs cpu"):
+            for name, cfg, n, extra, fade, key in (
+                    ("cif16_intra", INTRA_REXT_CFG, 3, [], 0.0,
+                     "intra_screen"),
+                    ("cif16_ldb", LDB_REXT_CFG, 5, [], 0.0, "ssd_table_deep"),
+                    ("cif16_ra", RA_REXT_CFG, N_RA, [], 0.0,
+                     "ssd_table_deep"),
+                    ("cif16_wp", LDP_CFG, N_FADE,
+                     ["--WeightedPredP=1", "--Profile=main-RExt"], FADE,
+                     "wp_apply")):
+                kw = dict(cfg=cfg, bit_depth=16, extra=extra, fade=fade)
+                runtime.reset_launches()
+                s_gpu, t_gpu, _, _ = encode(tmp, f"{name}_gpu", 416, 240, n,
+                                            args.seed, "cuda", **kw)
+                launched = runtime.launches[key]
+                s_cpu, t_cpu, _, _ = encode(tmp, f"{name}_cpu", 416, 240, n,
+                                            args.seed, "cpu", **kw)
+                log(f"  {name}: cuda {len(s_gpu)} bytes md5 "
+                    f"{hashlib.md5(s_gpu).hexdigest()} {t_gpu:.2f} s; cpu "
+                    f"{len(s_cpu)} bytes md5 {hashlib.md5(s_cpu).hexdigest()}"
+                    f" {t_cpu:.2f} s; cuda {key} launches {launched}")
+                if s_gpu != s_cpu:
+                    raise AssertionError(f"{name}: cuda and cpu streams "
+                                         f"differ")
+                if launched <= 0:
+                    raise AssertionError(f"{name}: {key} was never launched")
+                if key == "wp_apply":
+                    results["wp_apply_int32"]["launches"] = launched
+
         with Phase("8 decode every stream with the port's decoder"):
             from hevc_tpu_torch.decoder.top import DecoderTop
             for name, (data, n) in streams.items():
@@ -1794,7 +1981,9 @@ def main():
     order = ["ssd_table", "argmin_two_pass", "box_energies", "sad_table",
              "sad_cost_argmin", "full_search", "sad_table_planes",
              "me_planes", "intra_screen", "ssd_table_deep",
-             "box_energies_deep", "wp_apply", "refine_tables"]
+             "box_energies_deep", "wp_apply", "refine_tables",
+             "intra_screen_int32", "ssd_table_deep_int32",
+             "box_energies_deep_int32", "wp_apply_int32"]
     kernels = [results[k] for k in order]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,8 +4,8 @@
 // ops/intra.py `predict_all_modes` and ops/satd.py `satd_batch`), which the
 // reference ran as XLA programs over int64 gather tables. For every aligned
 // N x N luma block (N = 4, 8, 16, 32; ny = h / N rows, nx = w / N columns)
-// of the padded int16 plane P [h + 1, w + 1] (P[y + 1][x + 1] = orig[y][x],
-// row 0 and column 0 hold 1 << (bit_depth - 1)) it
+// of the padded plane P [h + 1, w + 1] (P[y + 1][x + 1] = orig[y][x], row 0
+// and column 0 hold 1 << (bit_depth - 1)) it
 //   - gathers the 4N + 1 reference samples f (f[2N] = P[y0][x0], top
 //     f[2N + 1 + x] = P[y0][min(x0 + 1 + x, w)], left
 //     f[2N - 1 - y] = P[min(y0 + 1 + y, h)][x0]) and their [1 2 1] smoothing
@@ -76,7 +76,18 @@
 //     tiles form a 2 x 2 square. Over the angular modes' load steps a
 //     request is nearly always conflict-free and at most 2-way; the planar
 //     and DC reads are broadcasts or conflict-free.
+//
+// Two instances: int16 planes of 8-14-bit samples (staged as int16), and
+// int32 planes of 15-16-bit samples (the reference's int32 planes above 14
+// bits, hevc_tpu/ops/intra_screen.py:177). A 16-bit sample fits 16 bits
+// unsigned, so the int32 instance stages the source zero-extended in the
+// same 16-bit shared layout (the same footprint and launch bounds), reads
+// it back without sign extension, and takes the reference samples as
+// int. Every sum stays in int32: a predicted sample or difference is below
+// 2^17 in magnitude, an 8x8 tile's sum of |coefficients| at most
+// 64 x 64 x 65535 < 2^28, a 32x32 block's cost below 2^31.
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -126,9 +137,10 @@ __device__ __forceinline__ int neg_index(int j, int inv) {
   return S > 0 ? max(2 * N - step, 0) : min(2 * N + step, 4 * N);
 }
 
-// T int16 of shared memory (16- or 8-byte aligned) into T ints.
-template <int T>
-__device__ __forceinline__ void load_row(const int16_t* p, int (&v)[T]) {
+// T 16-bit samples of shared memory (16- or 8-byte aligned) into T ints,
+// sign-extended from int16_t or zero-extended from uint16_t (Stage).
+template <int T, typename Stage>
+__device__ __forceinline__ void load_row(const Stage* p, int (&v)[T]) {
   uint32_t w[T / 2];
   if constexpr (T == 8) {
     const uint4 q = *reinterpret_cast<const uint4*>(p);
@@ -139,8 +151,8 @@ __device__ __forceinline__ void load_row(const int16_t* p, int (&v)[T]) {
   }
 #pragma unroll
   for (int k = 0; k < T / 2; ++k) {
-    v[2 * k] = static_cast<int16_t>(w[k] & 0xffffu);
-    v[2 * k + 1] = static_cast<int16_t>(w[k] >> 16);
+    v[2 * k] = static_cast<Stage>(w[k] & 0xffffu);
+    v[2 * k + 1] = static_cast<Stage>(w[k] >> 16);
   }
 }
 
@@ -238,9 +250,10 @@ __device__ __forceinline__ void predict_row(int mode, int yy, int x0,
   }
 }
 
-template <int N>
+// Pel: the plane's sample type, int16_t (8-14 bits) or int32_t (15-16 bits).
+template <int N, typename Pel>
 __global__ void __launch_bounds__(kThreads, 4)
-    intra_screen_kernel(const int16_t* __restrict__ plane, long long stride,
+    intra_screen_kernel(const Pel* __restrict__ plane, long long stride,
                         int h, int w, const int* __restrict__ lam_tab,
                         int maxval, int ny, int nx, int k,
                         uint8_t* __restrict__ cands, int* __restrict__ costs) {
@@ -248,9 +261,12 @@ __global__ void __launch_bounds__(kThreads, 4)
   constexpr int T = S::kTile, B = S::kBlocks, R = S::kRef;
   constexpr int RP = S::kRefPad, SP = S::kSrcPad, N2 = 2 * N;
   static_assert(B * S::kTiles * T == kThreads, "one tile row per thread");
+  // the staged source: int16 as it comes, or 16-bit samples zero-extended
+  using Stage =
+      std::conditional_t<std::is_same_v<Pel, int16_t>, int16_t, uint16_t>;
   __shared__ int f_s[B][2][RP];  // [block][unfiltered, filtered][4N + 1]
   // [source, transposed source][block][row][column]
-  __shared__ __align__(16) int16_t src_s[2][B][N][SP];
+  __shared__ __align__(16) Stage src_s[2][B][N][SP];
   __shared__ int cost_s[B][kModes];
   __shared__ int dc_s[B];
   const int tid = threadIdx.x;
@@ -275,11 +291,11 @@ __global__ void __launch_bounds__(kThreads, 4)
   for (int i = tid; i < B * N * N; i += kThreads) {
     const int b = i / (N * N), e = i - b * (N * N), g = g0 + b;
     const int y = e / N, x = e - y * N;
-    int16_t v = 0;
+    Stage v = 0;
     if (g < nblk) {
       const int by = g / nx;
       const int y0 = by * N, x0 = (g - by * nx) * N;
-      v = plane[(y0 + 1 + y) * stride + x0 + 1 + x];
+      v = static_cast<Stage>(plane[(y0 + 1 + y) * stride + x0 + 1 + x]);
     }
     src_s[0][b][y][x] = v;
     src_s[1][b][x][y] = v;
@@ -319,8 +335,8 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int i = lane & (T - 1);
   const int yy = ty * T + i, x0 = tx * T;
   int srow[T], scol[T];
-  load_row<T>(&src_s[0][b][yy][x0], srow);
-  load_row<T>(&src_s[1][b][yy][x0], scol);
+  load_row<T, Stage>(&src_s[0][b][yy][x0], srow);
+  load_row<T, Stage>(&src_s[1][b][yy][x0], scol);
   // keep them unpacked in registers across the mode loop (else the
   // compiler sign-extends the packed words again for every mode)
 #pragma unroll
@@ -393,47 +409,67 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
-template <int N>
+template <int N, typename Pel>
 int launch_intra_screen(const void* plane, long long stride, int h, int w,
                         const void* lam_tab, int maxval, int ny, int nx,
                         int k, void* cands, void* costs, cudaStream_t s) {
   const int nblk = ny * nx;
   if (nblk > 0)
-    intra_screen_kernel<N>
+    intra_screen_kernel<N, Pel>
         <<<(nblk + Size<N>::kBlocks - 1) / Size<N>::kBlocks, kThreads, 0,
-           s>>>(static_cast<const int16_t*>(plane), stride, h, w,
+           s>>>(static_cast<const Pel*>(plane), stride, h, w,
                 static_cast<const int*>(lam_tab), maxval, ny, nx, k,
                 static_cast<uint8_t*>(cands), static_cast<int*>(costs));
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// plane: int16 [h + 1, w + 1] (row stride `stride` elements); lam_tab: int32
-// [35]; cands: uint8 [ny * nx, k]; costs: int32 [ny * nx]; all on the card.
-extern "C" int hevc_intra_screen(const void* plane, long long stride, int h,
-                                 int w, const void* lam_tab, int bit_depth,
-                                 int size, int ny, int nx, int k, void* cands,
-                                 void* costs, void* stream) {
+template <typename Pel>
+int intra_screen_entry(const void* plane, long long stride, int h, int w,
+                       const void* lam_tab, int bit_depth, int size, int ny,
+                       int nx, int k, void* cands, void* costs,
+                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bit_depth < 8 || bit_depth > 14 || k < 0 || k > kModes ||
+  const int lo = sizeof(Pel) == 2 ? 8 : 15, hi = sizeof(Pel) == 2 ? 14 : 16;
+  if (bit_depth < lo || bit_depth > hi || k < 0 || k > kModes ||
       ny * size > h || nx * size > w)
     return cudaErrorInvalidValue;
   const int maxval = (1 << bit_depth) - 1;
   switch (size) {
     case 4:
-      return launch_intra_screen<4>(plane, stride, h, w, lam_tab, maxval, ny,
-                                    nx, k, cands, costs, s);
+      return launch_intra_screen<4, Pel>(plane, stride, h, w, lam_tab, maxval,
+                                         ny, nx, k, cands, costs, s);
     case 8:
-      return launch_intra_screen<8>(plane, stride, h, w, lam_tab, maxval, ny,
-                                    nx, k, cands, costs, s);
+      return launch_intra_screen<8, Pel>(plane, stride, h, w, lam_tab, maxval,
+                                         ny, nx, k, cands, costs, s);
     case 16:
-      return launch_intra_screen<16>(plane, stride, h, w, lam_tab, maxval, ny,
-                                     nx, k, cands, costs, s);
+      return launch_intra_screen<16, Pel>(plane, stride, h, w, lam_tab,
+                                          maxval, ny, nx, k, cands, costs, s);
     case 32:
-      return launch_intra_screen<32>(plane, stride, h, w, lam_tab, maxval, ny,
-                                     nx, k, cands, costs, s);
+      return launch_intra_screen<32, Pel>(plane, stride, h, w, lam_tab,
+                                          maxval, ny, nx, k, cands, costs, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// plane: int16 [h + 1, w + 1] (row stride `stride` elements) of 8-14-bit
+// samples; lam_tab: int32 [35]; cands: uint8 [ny * nx, k]; costs: int32
+// [ny * nx]; all on the card.
+extern "C" int hevc_intra_screen(const void* plane, long long stride, int h,
+                                 int w, const void* lam_tab, int bit_depth,
+                                 int size, int ny, int nx, int k, void* cands,
+                                 void* costs, void* stream) {
+  return intra_screen_entry<int16_t>(plane, stride, h, w, lam_tab, bit_depth,
+                                     size, ny, nx, k, cands, costs, stream);
+}
+
+// The same of an int32 plane of 15-16-bit samples.
+extern "C" int hevc_intra_screen32(const void* plane, long long stride, int h,
+                                   int w, const void* lam_tab, int bit_depth,
+                                   int size, int ny, int nx, int k,
+                                   void* cands, void* costs, void* stream) {
+  return intra_screen_entry<int32_t>(plane, stride, h, w, lam_tab, bit_depth,
+                                     size, ny, nx, k, cands, costs, stream);
 }

@@ -13,7 +13,8 @@
 // plane that is not 16-byte aligned), a thread a unit up to one wave of
 // resident thread blocks, and past that up to kWpUnroll loads a thread
 // issued before it transforms and stores them. Bound: bytes, one read and
-// one write of every plane.
+// one write of every plane. Three instances: uint8 (8-bit), int16 (9-14
+// bits) and int32 (15-16 bits, a 16-byte word holds four samples) planes.
 //
 // refine_tables replaces me_mxu.py _build_phases, _satd_of_tiles and
 // _refine_direct: the host's half- then quarter-pel SATD refinement around
@@ -92,18 +93,23 @@ __device__ __forceinline__ int wp_sample(int s, const WpArgs& a) {
   return min(max(add_wrap(v, a.off), 0), a.maxv);
 }
 
-// The samples of one 32-bit word of T (uint8_t or int16_t), transformed.
+// The samples of one 32-bit word of T (uint8_t, int16_t or int32_t),
+// transformed.
 template <typename T>
 __device__ __forceinline__ unsigned wp_word(unsigned x, const WpArgs& a) {
-  constexpr int BITS = 8 * sizeof(T);
-  constexpr unsigned MASK = (1u << BITS) - 1u;
-  unsigned y = 0;
+  if constexpr (sizeof(T) == 4) {
+    return static_cast<unsigned>(wp_sample(static_cast<int>(x), a));
+  } else {
+    constexpr int BITS = 8 * sizeof(T);
+    constexpr unsigned MASK = (1u << BITS) - 1u;
+    unsigned y = 0;
 #pragma unroll
-  for (int k = 0; k < 32 / BITS; ++k) {
-    const int s = static_cast<T>((x >> (BITS * k)) & MASK);
-    y |= (static_cast<unsigned>(wp_sample(s, a)) & MASK) << (BITS * k);
+    for (int k = 0; k < 32 / BITS; ++k) {
+      const int s = static_cast<T>((x >> (BITS * k)) & MASK);
+      y |= (static_cast<unsigned>(wp_sample(s, a)) & MASK) << (BITS * k);
+    }
+    return y;
   }
-  return y;
 }
 
 // Units of the concatenated space: plane p's 16-byte words, then its
@@ -761,8 +767,9 @@ int refine_entry(const void* orig, long long ostride, const void* ref,
 extern "C" int hevc_wp_apply_multi(const long long* desc, int count,
                                    int elem_bytes, int depth,
                                    cudaStream_t stream) {
-  if (count <= 0 || count > kWpMax || (elem_bytes != 1 && elem_bytes != 2) ||
-      depth < 1 || depth > 14)
+  if (count <= 0 || count > kWpMax ||
+      (elem_bytes != 1 && elem_bytes != 2 && elem_bytes != 4) || depth < 1 ||
+      depth > 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long *in = desc, *out = desc + count, *n = desc + 2 * count;
   const long long *w = desc + 3 * count, *d = desc + 4 * count,
@@ -788,8 +795,9 @@ extern "C" int hevc_wp_apply_multi(const long long* desc, int count,
   const long long total = a.start[count];
   if (total == 0) return 0;
   return static_cast<int>(
-      elem_bytes == 1 ? launch_wp<uint8_t>(a, total, stream)
-                      : launch_wp<int16_t>(a, total, stream));
+      elem_bytes == 1   ? launch_wp<uint8_t>(a, total, stream)
+      : elem_bytes == 2 ? launch_wp<int16_t>(a, total, stream)
+                        : launch_wp<int32_t>(a, total, stream));
 }
 
 extern "C" int hevc_refine_tables(const void* orig, long long ostride,

@@ -83,6 +83,15 @@
 //   memory at r = 64), so one block's staging runs under the other's
 //   products; five blocks of three warps at 16x16 (125 registers, 18.1 KB
 //   at r = 16). No spills (the -Xptxas -v log of the build).
+// - 15-16-bit samples (int32 planes, the reference's me_dtype above 14
+//   bits): shift = depth - 10 (5 or 6) brings them to the same centred
+//   10-bit values as Main10, so the biased windows, the three products and
+//   the fold are those of the int16 instance. Only the staging differs:
+//   8 samples are two 16-byte loads (2 chunks in flight a thread, the same
+//   bytes as 4 int16 chunks), each pair of int32 samples packed into the
+//   16-bit halves of one word (a 15-16-bit sample fits 16 bits unsigned),
+//   which split_pair then takes as it takes int16 pairs; the plane is read
+//   by vector loads only where its base and row pitch are 16-byte aligned.
 
 // argmin_two_pass replaces `_argmin_two_pass` (LOCAL_W = 8):
 //   pass 1: argmin of the 3x3-neighbourhood sum of
@@ -130,7 +139,8 @@
 // samples with four 2-byte loads and keeps them centred, (a >> shift) -
 // mid, two to a word; columns past the row read as 0. Every window sum is
 // below 1024 * 512^2 < 2^31. Bound: bytes (2.4 MB more in than the 8-bit
-// plane at 1080p).
+// plane at 1080p). Its int32 instance (15-16-bit samples) loads int32
+// samples the same way and keeps the same centred 16-bit halves.
 #include <algorithm>
 #include <cstdint>
 
@@ -604,11 +614,37 @@ __device__ __forceinline__ void deep_item_of(int live, Args... args) {
   deep_item<SIZE, LIVE>(args...);
 }
 
-template <int SIZE, bool STAGE_ONLY>
+// Eight window samples from 16-byte loads as four words of two 16-bit
+// samples: one load of int16 samples, or two of int32 ones (15-16 bits,
+// so each fits 16 bits unsigned) packed pairwise.
+template <typename Pel>
+struct DeepChunk {
+  static constexpr int LOADS = sizeof(Pel) / 2;
+  int4 v[LOADS];
+  __device__ __forceinline__ void load(const Pel* p) {
+#pragma unroll
+    for (int q = 0; q < LOADS; ++q)
+      v[q] = __ldg(reinterpret_cast<const int4*>(p) + q);
+  }
+  __device__ __forceinline__ void words(uint32_t (&w)[4]) const {
+    if constexpr (LOADS == 1) {
+      w[0] = v[0].x; w[1] = v[0].y; w[2] = v[0].z; w[3] = v[0].w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        w[2 * q] = __byte_perm(v[q].x, v[q].y, 0x5410);
+        w[2 * q + 1] = __byte_perm(v[q].z, v[q].w, 0x5410);
+      }
+    }
+  }
+};
+
+// Pel: int16_t (9-14-bit samples) or int32_t (15-16 bits).
+template <int SIZE, bool STAGE_ONLY, typename Pel>
 __global__ void __launch_bounds__(DeepTile<SIZE>::WARPS * 32,
                                   DeepTile<SIZE>::MINB)
-ssd_table_deep_kernel(const int16_t* __restrict__ roi, long long roi_stride,
-                      const int16_t* __restrict__ orig, long long orig_stride,
+ssd_table_deep_kernel(const Pel* __restrict__ roi, long long roi_stride,
+                      const Pel* __restrict__ orig, long long orig_stride,
                       const int* __restrict__ box, long long box_stride,
                       int* __restrict__ out, int r, int nx, int shift,
                       int mid) {
@@ -623,7 +659,8 @@ ssd_table_deep_kernel(const int16_t* __restrict__ roi, long long roi_stride,
   const L lay(r);
   const int nyx = lay.nyx, aw = lay.aw, S = lay.stride;
   constexpr int TB = T::WARPS * 32;         // threads (blockDim.x)
-  constexpr int WB = 4;                     // window chunks in flight a thread
+  // window chunks in flight a thread (64 bytes of loads)
+  constexpr int WB = 8 / sizeof(Pel);
   constexpr int NBT = (SIZE * 16 + TB - 1) / TB;  // B-word tasks a thread
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const uint32_t bias2 = static_cast<uint32_t>(576 - mid) * 0x10001u;
@@ -637,8 +674,8 @@ ssd_table_deep_kernel(const int16_t* __restrict__ roi, long long roi_stride,
   // where the plane allows).
   const int n = blockIdx.x;
   const int by = n / nx, bx = n - (n / nx) * nx;
-  const int16_t* gb = orig + (static_cast<long long>(by) * SIZE) * orig_stride +
-                      static_cast<long long>(bx) * SIZE;
+  const Pel* gb = orig + (static_cast<long long>(by) * SIZE) * orig_stride +
+                  static_cast<long long>(bx) * SIZE;
   int tap[NBT][4];
 #pragma unroll
   for (int it = 0; it < NBT; ++it) {
@@ -655,12 +692,12 @@ ssd_table_deep_kernel(const int16_t* __restrict__ roi, long long roi_stride,
     // only the aw x aw samples are staged: window bytes past aw (rows
     // and columns) meet zero B taps or feed offsets past nyx, never
     // stored, so they may hold anything
-    const int16_t* ga = roi +
-                        (static_cast<long long>(by) * SIZE) * roi_stride +
-                        static_cast<long long>(bx) * SIZE;
-    const bool aligned = ((reinterpret_cast<uintptr_t>(ga) |
-                           static_cast<uintptr_t>(roi_stride * 2)) &
-                          15) == 0;
+    const Pel* ga = roi + (static_cast<long long>(by) * SIZE) * roi_stride +
+                    static_cast<long long>(bx) * SIZE;
+    const bool aligned =
+        ((reinterpret_cast<uintptr_t>(ga) |
+          static_cast<uintptr_t>(roi_stride * sizeof(Pel))) &
+         15) == 0;
     const int cwa = (aw + 7) >> 3;  // 8-sample chunks of a window row
     const int ys = TB / cwa, cs = TB - ys * cwa;  // a step of TB chunks
     int y = tid / cwa, c = tid - y * cwa;         // this thread's chunk
@@ -668,16 +705,14 @@ ssd_table_deep_kernel(const int16_t* __restrict__ roi, long long roi_stride,
     uint2* lw = reinterpret_cast<uint2*>(smem + lay.window_bytes());
     while (y < aw) {
       int yc[WB], xc[WB];
-      int4 v[WB];
+      DeepChunk<Pel> v[WB];
       bool vec[WB];
 #pragma unroll
       for (int u = 0; u < WB; ++u) {
         yc[u] = y;
         xc[u] = c << 3;
         vec[u] = aligned && y < aw && xc[u] + 8 <= aw;
-        if (vec[u])
-          v[u] = __ldg(
-              reinterpret_cast<const int4*>(ga + y * roi_stride + xc[u]));
+        if (vec[u]) v[u].load(ga + y * roi_stride + xc[u]);
         c += cs;
         y += ys + (c >= cwa);
         if (c >= cwa) c -= cwa;
@@ -687,14 +722,11 @@ ssd_table_deep_kernel(const int16_t* __restrict__ roi, long long roi_stride,
         if (yc[u] >= aw) break;
         uint32_t hp[4], lp[4];
         if (vec[u]) {
-          split_pair(static_cast<uint32_t>(v[u].x), shift, bias2, hp[0],
-                     lp[0]);
-          split_pair(static_cast<uint32_t>(v[u].y), shift, bias2, hp[1],
-                     lp[1]);
-          split_pair(static_cast<uint32_t>(v[u].z), shift, bias2, hp[2],
-                     lp[2]);
-          split_pair(static_cast<uint32_t>(v[u].w), shift, bias2, hp[3],
-                     lp[3]);
+          uint32_t wd[4];
+          v[u].words(wd);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            split_pair(wd[q], shift, bias2, hp[q], lp[q]);
         } else {  // the unaligned plane, the row's last partial chunk
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
@@ -826,7 +858,7 @@ ssd_table_deep_kernel(const int16_t* __restrict__ roi, long long roi_stride,
   }
 }
 
-template <int SIZE, bool STAGE_ONLY>
+template <int SIZE, bool STAGE_ONLY, typename Pel>
 int launch_ssd_table_deep(const void* roi, long long roi_stride,
                           const void* orig, long long orig_stride,
                           const void* box, long long box_stride, void* out,
@@ -834,13 +866,14 @@ int launch_ssd_table_deep(const void* roi, long long roi_stride,
                           cudaStream_t stream) {
   const DeepLayout<SIZE> lay(r);
   const size_t smem = lay.bytes();
-  cudaError_t e = allow_smem(ssd_table_deep_kernel<SIZE, STAGE_ONLY>, smem);
+  cudaError_t e =
+      allow_smem(ssd_table_deep_kernel<SIZE, STAGE_ONLY, Pel>, smem);
   if (e != cudaSuccess) return e;
   if (ny > 0 && nx > 0)
-    ssd_table_deep_kernel<SIZE, STAGE_ONLY>
+    ssd_table_deep_kernel<SIZE, STAGE_ONLY, Pel>
         <<<ny * nx, DeepTile<SIZE>::WARPS * 32, smem, stream>>>(
-            static_cast<const int16_t*>(roi), roi_stride,
-            static_cast<const int16_t*>(orig), orig_stride,
+            static_cast<const Pel*>(roi), roi_stride,
+            static_cast<const Pel*>(orig), orig_stride,
             static_cast<const int*>(box), box_stride, static_cast<int*>(out),
             r, nx, shift, mid);
   return cudaGetLastError();
@@ -884,6 +917,10 @@ template <>
 struct BoxWord<int16_t> {
   using type = uint2;
 };
+template <>
+struct BoxWord<int32_t> {
+  using type = uint2;
+};
 
 // col[k] += sign * (byte k of v - 128)^2
 template <int SIGN>
@@ -916,8 +953,8 @@ __device__ __forceinline__ void add_sq(uint2 v, int (&col)[4]) {
 // shuffles, and output column 4l + k corrects it by the first k column
 // sums of lane l and of lane l + SIZE/4, and stores 16 bytes (box is
 // 16-byte aligned and box_stride a multiple of 4).
-// T is uint8_t (8-bit samples, centred on 128; shift and mid unused) or
-// int16_t (deep samples, centred as (a >> shift) - mid).
+// T is uint8_t (8-bit samples, centred on 128; shift and mid unused),
+// int16_t or int32_t (deep samples, centred as (a >> shift) - mid).
 template <int SIZE, typename T>
 __global__ void __launch_bounds__(32 * kBoxWarps)
 box_energies_kernel(const T* __restrict__ roi, long long roi_stride,
@@ -1327,7 +1364,16 @@ extern "C" int hevc_box_energies_deep(const void* roi, long long roi_stride,
                                      shift, mid, box, box_stride, stream);
 }
 
-template <bool STAGE_ONLY>
+// The same of an int32 plane of 15-16-bit samples.
+extern "C" int hevc_box_energies_deep32(const void* roi, long long roi_stride,
+                                        int out_h, int out_w, int size,
+                                        int shift, int mid, void* box,
+                                        long long box_stride, void* stream) {
+  return box_energies_entry<int32_t>(roi, roi_stride, out_h, out_w, size,
+                                     shift, mid, box, box_stride, stream);
+}
+
+template <bool STAGE_ONLY, typename Pel>
 int ssd_table_deep_entry(const void* roi, long long roi_stride,
                          const void* orig, long long orig_stride,
                          const void* box, long long box_stride, void* out,
@@ -1336,15 +1382,15 @@ int ssd_table_deep_entry(const void* roi, long long roi_stride,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (size) {
     case 8:
-      return launch_ssd_table_deep<8, STAGE_ONLY>(
+      return launch_ssd_table_deep<8, STAGE_ONLY, Pel>(
           roi, roi_stride, orig, orig_stride, box, box_stride, out, r, ny, nx,
           shift, mid, s);
     case 16:
-      return launch_ssd_table_deep<16, STAGE_ONLY>(
+      return launch_ssd_table_deep<16, STAGE_ONLY, Pel>(
           roi, roi_stride, orig, orig_stride, box, box_stride, out, r, ny, nx,
           shift, mid, s);
     case 32:
-      return launch_ssd_table_deep<32, STAGE_ONLY>(
+      return launch_ssd_table_deep<32, STAGE_ONLY, Pel>(
           roi, roi_stride, orig, orig_stride, box, box_stride, out, r, ny, nx,
           shift, mid, s);
     default:
@@ -1359,9 +1405,10 @@ extern "C" int hevc_ssd_table_deep(const void* roi, long long roi_stride,
                                    const void* box, long long box_stride,
                                    void* out, int size, int r, int ny, int nx,
                                    int shift, int mid, void* stream) {
-  return ssd_table_deep_entry<false>(roi, roi_stride, orig, orig_stride, box,
-                                     box_stride, out, size, r, ny, nx, shift,
-                                     mid, stream);
+  return ssd_table_deep_entry<false, int16_t>(roi, roi_stride, orig,
+                                              orig_stride, box, box_stride,
+                                              out, size, r, ny, nx, shift,
+                                              mid, stream);
 }
 
 // The staging probe of ssd_table_deep (chip_smoke.py times it): the same
@@ -1374,7 +1421,32 @@ extern "C" int hevc_ssd_table_deep_stage(const void* roi, long long roi_stride,
                                          void* out, int size, int r, int ny,
                                          int nx, int shift, int mid,
                                          void* stream) {
-  return ssd_table_deep_entry<true>(roi, roi_stride, orig, orig_stride, box,
-                                    box_stride, out, size, r, ny, nx, shift,
-                                    mid, stream);
+  return ssd_table_deep_entry<true, int16_t>(roi, roi_stride, orig,
+                                             orig_stride, box, box_stride,
+                                             out, size, r, ny, nx, shift,
+                                             mid, stream);
+}
+
+// ssd_table_deep and its staging probe on int32 planes of 15-16-bit
+// samples (shift 5 or 6 takes them to 10 effective bits).
+extern "C" int hevc_ssd_table_deep32(const void* roi, long long roi_stride,
+                                     const void* orig, long long orig_stride,
+                                     const void* box, long long box_stride,
+                                     void* out, int size, int r, int ny,
+                                     int nx, int shift, int mid,
+                                     void* stream) {
+  return ssd_table_deep_entry<false, int32_t>(roi, roi_stride, orig,
+                                              orig_stride, box, box_stride,
+                                              out, size, r, ny, nx, shift,
+                                              mid, stream);
+}
+
+extern "C" int hevc_ssd_table_deep32_stage(
+    const void* roi, long long roi_stride, const void* orig,
+    long long orig_stride, const void* box, long long box_stride, void* out,
+    int size, int r, int ny, int nx, int shift, int mid, void* stream) {
+  return ssd_table_deep_entry<true, int32_t>(roi, roi_stride, orig,
+                                             orig_stride, box, box_stride,
+                                             out, size, r, ny, nx, shift,
+                                             mid, stream);
 }

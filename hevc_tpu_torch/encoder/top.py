@@ -528,7 +528,8 @@ class EncoderTop:
             # every sequence codes I slices (at least the IDR), and each
             # I slice runs the device 35-mode prescreen
             from ..ops.intra_screen import screen_frame_async
-            mid = np.full((h, w), 1 << (depth - 1), np.int16)
+            pdt = np.int16 if depth <= 14 else np.int32
+            mid = np.full((h, w), 1 << (depth - 1), pdt)
             screen_frame_async(mid, depth, 1.0, device=self.device)()
         if cfg.intra_period == 1:
             return

@@ -14,7 +14,14 @@ import subprocess
 import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libhevc_entropy.so")
+# HEVC_TPU_LIB overrides the standard library (int16 samples), e.g. with
+# the TSAN build of `make tsan` for the threaded-wavefront race check
+_LIB_PATH = os.environ.get(
+    "HEVC_TPU_LIB", os.path.join(_NATIVE_DIR, "libhevc_entropy.so"))
+# pel32=True loads the high-bit-depth build (samples as int32, 16-bit
+# video): the reference's dual-build scheme (make all_highbitdepth,
+# TypeDef.h:698 typedef Int Pel)
+_HBD_PATH = os.path.join(_NATIVE_DIR, "libhevc_entropy_hbd.so")
 _libs: dict = {}
 
 
@@ -66,29 +73,33 @@ class SliceParamsC(ctypes.Structure):
         ("gpu_sr", ctypes.c_int32)]
 
 
-def _build() -> None:
-    """`make -j` of the native library under an exclusive file lock:
-    parallel test workers loading the library at once must not run two
-    builds in one directory."""
+def _build(target: str) -> None:
+    """`make -j <target>` of the native library under an exclusive file
+    lock: parallel test workers loading the library at once must not run
+    two builds in one directory."""
     import fcntl
     with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        subprocess.run(["make", "-s", f"-j{os.cpu_count() or 1}"],
+        subprocess.run(["make", "-s", f"-j{os.cpu_count() or 1}", target],
                        cwd=_NATIVE_DIR, check=True)
 
 
 def get_lib(pel32: bool = False) -> ctypes.CDLL:
+    """The native library: the standard build (int16 samples, 8-14 bits)
+    or with pel32 the high-bit-depth one (int32 samples, 15-16 bits)."""
     cached = _libs.get(pel32)
     if cached is not None:
         return cached
-    if pel32:
-        raise NotImplementedError(
-            "the high-bit-depth (16-bit sample) native build is not part "
-            "of hevc_tpu_torch yet")
     # make decides what is stale; the lock keeps a reader from loading a
-    # library another process is still linking
-    _build()
-    path = _LIB_PATH
+    # library another process is still linking. A library named by
+    # HEVC_TPU_LIB is loaded as it is.
+    if pel32:
+        _build("hbd")
+        path = _HBD_PATH
+    else:
+        path = _LIB_PATH
+        if "HEVC_TPU_LIB" not in os.environ:
+            _build("all")
     lib = ctypes.CDLL(path)
     lib.hevc_pel_bits.restype = ctypes.c_int
     assert lib.hevc_pel_bits() == (32 if pel32 else 16), path

@@ -161,19 +161,22 @@ def intra_screen(plane: torch.Tensor, lam_tab: torch.Tensor, *,
                  bit_depth: int, log2s=(2, 3, 4, 5)):
     """The prescreen of every aligned block of sizes 1 << log2s.
 
-    plane: the padded int16 plane [h+1, w+1] (P[y+1, x+1] = orig[y, x]; row
-    0 and column 0 hold 1 << (bit_depth-1)); lam_tab: int32 [35], the mode
-    cost added to each SATD. Returns the packed (cands uint8 [sum b*k],
-    costs int32 [sum b]), size by size in the order of log2s, block-row
-    major. On a card one kernel launch per size; CPU tensors take
-    `intra_screen_plain`."""
+    plane: the padded plane [h+1, w+1] (P[y+1, x+1] = orig[y, x]; row 0
+    and column 0 hold 1 << (bit_depth-1)), int16 at 8-14 bits and int32 at
+    15-16 bits; lam_tab: int32 [35], the mode cost added to each SATD.
+    Returns the packed (cands uint8 [sum b*k], costs int32 [sum b]), size
+    by size in the order of log2s, block-row major. On a card one kernel
+    launch per size (the int32 instance for an int32 plane); CPU tensors
+    take `intra_screen_plain`."""
     if plane.device.type == "cpu":
         return intra_screen_plain(plane, lam_tab, bit_depth=bit_depth,
                                   log2s=log2s)
-    runtime.require(plane, torch.int16, "intra_screen plane")
+    wide = bit_depth > 14
+    runtime.require(plane, torch.int32 if wide else torch.int16,
+                    "intra_screen plane")
     runtime.require(lam_tab, torch.int32, "intra_screen lam_tab")
-    if not 8 <= bit_depth <= 14 or lam_tab.numel() != 35:
-        raise ValueError("intra_screen: bit depth 8-14 and 35 mode costs")
+    if not 8 <= bit_depth <= 16 or lam_tab.numel() != 35:
+        raise ValueError("intra_screen: bit depth 8-16 and 35 mode costs")
     h, w = plane.shape[0] - 1, plane.shape[1] - 1
     sizes = _sizes(w, h, tuple(log2s))
     dev = plane.device
@@ -185,7 +188,7 @@ def intra_screen(plane: torch.Tensor, lam_tab: torch.Tensor, *,
     stream = runtime.stream_of(plane)
     offi = offc = 0
     for (log2, n, ny, nx, k, b) in sizes:
-        rc = lib.hevc_intra_screen(
+        rc = (lib.hevc_intra_screen32 if wide else lib.hevc_intra_screen)(
             plane.data_ptr(), plane.stride(0), h, w, lam_tab.data_ptr(),
             bit_depth, n, ny, nx, k, cands.data_ptr() + offi,
             costs.data_ptr() + 4 * offc, stream)
@@ -208,12 +211,13 @@ def screen_frame_async(orig_y: np.ndarray, bit_depth: int, sqrt_lam: float,
     costs are the best original-reference SATD+mode-bits per block, the
     engine's TU/CU split-gate signal (engine.cpp code_r gate)."""
     dev = runtime.resolve_device(device)
-    if bit_depth > 14:
-        raise NotImplementedError(
-            "the 16-bit intra prescreen is not ported to hevc_tpu_torch yet")
+    if not 8 <= bit_depth <= 16:
+        raise ValueError(f"screen_frame: {bit_depth}-bit samples (8-16)")
     h, w = orig_y.shape
     mid = 1 << (bit_depth - 1)
-    p = np.empty((h + 1, w + 1), np.int16)
+    # 15-16-bit samples exceed int16 (the engine's HBD build carries them
+    # as int32); the SATD arithmetic is int32-safe at every depth
+    p = np.empty((h + 1, w + 1), np.int16 if bit_depth <= 14 else np.int32)
     p[1:, 1:] = orig_y
     p[0, :] = mid
     p[:, 0] = mid

@@ -19,7 +19,8 @@ which the wrappers run only for tensors on the CPU. Deep bit depths (9-14
 bits, int16 planes) take the deep SSD table (the reference's
 `_ssd_table_deep`: samples shifted to at most 10 bits and centred, the
 correlation as three int8 ones) and the deep window energies, both CUDA
-kernels too, and the rate term scaled by `_lam_shift`.
+kernels too, and the rate term scaled by `_lam_shift`; 15-16-bit samples
+travel as int32 planes (`me_dtype`) and take the kernels' int32 instances.
 
 Two options of the search have kernels of their own (csrc/me_refine.cu).
 Weighted prediction (`wp_apply_multi`, one launch a picture) transforms
@@ -116,15 +117,16 @@ def box_energies(roi: torch.Tensor, size: int, shift: int = 0,
     """Box-sum plane of the centred squares ((roi >> shift) - mid)^2:
     [H - size + 1, W - size + 1] int32. On the card one kernel launch
     (size 8, 16 or 32): a uint8 plane (shift 0, mid 128) takes the 8-bit
-    kernel, an int16 plane of 9-14-bit samples the deep one. Its output rows
-    are strided to a multiple of 4 int32 for its 16-byte stores; its plain
+    kernel, an int16 plane of 9-14-bit samples (shift <= 4) or an int32 one
+    of 15-16-bit samples (shift 5 or 6) the deep one. Its output rows are
+    strided to a multiple of 4 int32 for its 16-byte stores; its plain
     version is `_box_energies` of the squares."""
     if roi.device.type == "cpu":
         rc = (roi.to(torch.int32) >> shift) - mid
         return _box_energies(rc * rc, size)
-    deep = roi.dtype == torch.int16
+    deep = roi.dtype in (torch.int16, torch.int32)
     name = "box_energies_deep" if deep else "box_energies"
-    runtime.require(roi, torch.int16 if deep else torch.uint8, name + " roi",
+    runtime.require(roi, roi.dtype if deep else torch.uint8, name + " roi",
                     contiguous=False)
     if roi.stride(1) != 1 or min(roi.shape) < size or size not in (8, 16,
                                                                    32):
@@ -132,15 +134,18 @@ def box_energies(roi: torch.Tensor, size: int, shift: int = 0,
                          "than 8, 16 and 32")
     if not deep and (shift, mid) != (0, 128):
         raise ValueError("box_energies: a uint8 plane is centred on 128")
-    if deep and not (0 <= shift <= 4 and 0 < mid <= 512):
+    wide = roi.dtype == torch.int32
+    shifts = range(5, 7) if wide else range(0, 5)
+    if deep and not (shift in shifts and 0 < mid <= 512):
         raise ValueError("box_energies_deep: shift and mid of 9-14-bit "
-                         "samples")
+                         "(int16) or 15-16-bit (int32) samples")
     out_h, out_w = roi.shape[0] - size + 1, roi.shape[1] - size + 1
     box = torch.empty_strided((out_h, out_w), (-(-out_w // 4) * 4, 1),
                               dtype=torch.int32, device=roi.device)
     lib = runtime.kernel_lib("me_ssd")
     if deep:
-        rc = lib.hevc_box_energies_deep(
+        rc = (lib.hevc_box_energies_deep32 if wide
+              else lib.hevc_box_energies_deep)(
             roi.data_ptr(), roi.stride(0), out_h, out_w, size, shift, mid,
             box.data_ptr(), box.stride(0), runtime.stream_of(roi))
     else:
@@ -279,9 +284,10 @@ def deep_padded_macs(size: int, r: int, nblocks: int) -> int:
 
 def _ssd_table_deep(roi, orig, *, size, r, ny, nx, depth):
     """SSD tables [ny*nx, nyx, nyx] int32 of deep samples, as _ssd_table's
-    layout: roi and orig int16 planes of 9-14-bit samples (roi may be a
-    strided view into the padded reference). On the card the deep window
-    energies, then the deep SSD-table kernel."""
+    layout: roi and orig int16 planes of 9-14-bit samples or int32 planes
+    of 15-16-bit ones (roi may be a strided view into the padded
+    reference). On the card the deep window energies, then the deep
+    SSD-table kernel (its int32 instance for int32 planes)."""
     if roi.device.type == "cpu":
         return _ssd_table_deep_plain(roi, orig, size=size, r=r, ny=ny,
                                      nx=nx, depth=depth)
@@ -290,12 +296,13 @@ def _ssd_table_deep(roi, orig, *, size, r, ny, nx, depth):
     if size not in (8, 16, 32):
         raise ValueError(f"ssd_table_deep: block size {size} is not 8, 16 "
                          "or 32 (half of an HEVC CTU)")
-    if not 8 < depth <= 14:
+    if not 8 < depth <= 16:
         raise ValueError(f"ssd_table_deep: {depth}-bit samples (9-14 bits "
-                         "travel as int16)")
-    runtime.require(roi, torch.int16, "ssd_table_deep roi", contiguous=False)
-    runtime.require(orig, torch.int16, "ssd_table_deep orig",
-                    contiguous=False)
+                         "travel as int16, 15-16 bits as int32)")
+    wide = depth > 14
+    dt = torch.int32 if wide else torch.int16
+    runtime.require(roi, dt, "ssd_table_deep roi", contiguous=False)
+    runtime.require(orig, dt, "ssd_table_deep orig", contiguous=False)
     if (roi.stride(1) != 1 or orig.stride(1) != 1
             or roi.shape[0] < (ny - 1) * size + aw
             or roi.shape[1] < (nx - 1) * size + aw
@@ -306,7 +313,7 @@ def _ssd_table_deep(roi, orig, *, size, r, ny, nx, depth):
     out = torch.empty((ny * nx, nyx, nyx), dtype=torch.int32,
                       device=roi.device)
     lib = runtime.kernel_lib("me_ssd")
-    rc_ = lib.hevc_ssd_table_deep(
+    rc_ = (lib.hevc_ssd_table_deep32 if wide else lib.hevc_ssd_table_deep)(
         roi.data_ptr(), roi.stride(0), orig.data_ptr(), orig.stride(0),
         box.data_ptr(), box.stride(0), out.data_ptr(), size, r, ny, nx,
         shift, mid, runtime.stream_of(roi))
@@ -428,7 +435,8 @@ def wp_apply_multi(planes, wpvs, depth: int) -> list:
     with its own (w, o, denom) triple, into new planes (the reference maps
     wp_apply over a picture's references, me_mxu.py lax.map). On the card
     one launch of the wp_apply kernel over all of them: at most WP_MAX
-    uint8 (8-bit) or int16 (9-14 bits) planes, of any size and alignment."""
+    uint8 (8-bit), int16 (9-14 bits) or int32 (15-16 bits) planes
+    (me_dtype), of any size and alignment."""
     planes = list(planes)
     if len(wpvs) != len(planes):
         raise ValueError("wp_apply_multi: one triple a plane")
@@ -436,13 +444,11 @@ def wp_apply_multi(planes, wpvs, depth: int) -> list:
         return []
     if planes[0].device.type == "cpu":
         return wp_apply_multi_plain(planes, wpvs, depth)
-    if depth > 14:
-        raise NotImplementedError("wp_apply: 15-16-bit planes (int32) have "
-                                  "no kernel")
     if len(planes) > WP_MAX:
         raise ValueError(f"wp_apply_multi: {len(planes)} planes, at most "
                          f"{WP_MAX} a launch")
-    dt = torch.uint8 if depth <= 8 else torch.int16
+    dt = (torch.uint8 if depth <= 8 else
+          torch.int16 if depth <= 14 else torch.int32)
     for p in planes:
         runtime.require(p, dt, "wp_apply plane")
     wdo = [_wp_kernel_triple(t, depth) for t in wpvs]
@@ -696,9 +702,9 @@ def me_idx_frame(orig, ref_padded, bits0, lam_q8, *, size, r, ny, nx, pad,
                  depth=8, wpv=None):
     """One frame's two-pass SSD argmin indices [ny*nx] int32 for one
     reference: orig [H, W] and ref_padded [H+2pad, W+2pad] tensors, uint8
-    at 8 bits, int16 at 9-14 bits (me_dtype). `wpv`, when given, is the
-    (w, o, denom) weighted-prediction triple applied to the reference
-    before the search (wp_apply)."""
+    at 8 bits, int16 at 9-14 bits, int32 at 15-16 bits (me_dtype). `wpv`,
+    when given, is the (w, o, denom) weighted-prediction triple applied to
+    the reference before the search (wp_apply)."""
     if wpv is not None:
         ref_padded = wp_apply(ref_padded, wpv, depth)
     aw = 2 * r + size

@@ -68,6 +68,12 @@ _SIGNATURES = {
         "hevc_ssd_table_deep_stage": [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I,
                                       _I, _I, _I, _P],
         "hevc_box_energies_deep": [_P, _L, _I, _I, _I, _I, _I, _P, _L, _P],
+        "hevc_box_energies_deep32": [_P, _L, _I, _I, _I, _I, _I, _P, _L,
+                                     _P],
+        "hevc_ssd_table_deep32": [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I,
+                                  _I, _I, _I, _P],
+        "hevc_ssd_table_deep32_stage": [_P, _L, _P, _L, _P, _L, _P, _I, _I,
+                                        _I, _I, _I, _I, _P],
         "hevc_mma_probe": [_P, _I, _I, _P],
     },
     "me_refine": {
@@ -81,6 +87,8 @@ _SIGNATURES = {
     "intra_screen": {
         "hevc_intra_screen": [_P, _L, _I, _I, _P, _I, _I, _I, _I, _I, _P,
                               _P, _P],
+        "hevc_intra_screen32": [_P, _L, _I, _I, _P, _I, _I, _I, _I, _I, _P,
+                                _P, _P],
     },
 }
 _libs: dict = {}

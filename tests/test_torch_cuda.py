@@ -764,8 +764,8 @@ def test_refine_and_wp_reject_bad_arguments(dev):
     with pytest.raises(NotImplementedError):
         me_ssd.refine_tables(plane, plane, g, size=16, r=4, ny=2, nx=2,
                              pad=PAD, depth=16)
-    with pytest.raises(NotImplementedError):
-        me_ssd.wp_apply(plane, (1, 0, 0), 16)
+    with pytest.raises(ValueError):
+        me_ssd.wp_apply(plane, (1, 0, 0), 14)   # a 14-bit plane is int16
     u8 = torch.zeros((200, 200), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError):
         me_ssd.refine_tables(u8, u8, g, size=8, r=4, ny=2, nx=2, pad=PAD,
@@ -800,3 +800,206 @@ def test_refine_and_wp_encode_on_card_matches_cpu(dev, monkeypatch, refine,
     got = run("cuda")
     assert runtime.launches[key] > before
     assert got == run("cpu")
+
+
+# ---------------------------------------------------------------------
+# the int32 instances of 15-16-bit video (int32 planes, me_dtype)
+# ---------------------------------------------------------------------
+def _planes32(kind, h, w, bit_depth, seed):
+    """Two int32 planes of bit_depth-bit samples (15 or 16): random over
+    the whole range, the range's two ends against each other, samples of
+    0, 2^(bit_depth - 1) and 2^bit_depth - 1 at random, or moving texture
+    shifted up with flat patches (many offsets and modes tie)."""
+    rng = np.random.default_rng(seed)
+    top = (1 << bit_depth) - 1
+    if kind == "random":
+        planes = [rng.integers(0, top + 1, (h, w)) for _ in range(2)]
+    elif kind == "zeros_vs_max":
+        planes = [np.zeros((h, w)), np.full((h, w), top)]
+    elif kind == "extremes":
+        vals = np.array([0, 1 << (bit_depth - 1), top])
+        planes = [vals[rng.integers(0, 3, (h, w))] for _ in range(2)]
+    else:
+        f = moving_frames(2, w, h, seed=seed)
+        planes = [f[1][0].astype(np.int64) << (bit_depth - 8),
+                  f[0][0].astype(np.int64) << (bit_depth - 8)]
+        for p in planes:
+            p[:h // 2, :w // 3] = top // 3
+    return [p.astype(np.int32) for p in planes]
+
+
+def _to_card(dev, p, strided):
+    """The plane on the card: contiguous, or (strided) a view that starts
+    at the second column of a larger plane, 4 bytes past a 16-byte
+    boundary, so that no row of it is 16-byte aligned."""
+    if not strided:
+        return torch.from_numpy(p).to(dev)
+    h, w = p.shape
+    big = np.zeros((h + 3, w + 7), np.int32)
+    big[2:2 + h, 1:1 + w] = p
+    return torch.from_numpy(big).to(dev)[2:2 + h, 1:1 + w]
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("kind", ["random", "zeros_vs_max", "extremes",
+                                  "flat"])
+@pytest.mark.parametrize("bit_depth", [15, 16])
+@pytest.mark.parametrize("r", [16, 64])
+@pytest.mark.parametrize("size", [8, 16, 32])
+def test_ssd_table_deep_int32_matches_plain(dev, size, r, bit_depth, kind,
+                                            strided):
+    """The deep SSD table's int32 instance (and box_energies_deep's) on a
+    3 x 5 grid at 15 and 16 bits equals its plain version: whole planes
+    (every window row 16-byte aligned: the vector staging) and strided
+    views into larger planes (the sample-by-sample staging), at the
+    samples' extremes and on flat patches."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    ny, nx = 3, 5
+    # strided: the padded reference's rows are an odd number of samples
+    orig, ref = _planes32(kind, ny * size, nx * size + (3 if strided else 0),
+                          bit_depth, seed=size * 100 + r + bit_depth)
+    o = _to_card(dev, orig, strided)
+    refp = me_ssd.pad_ref_device(_to_card(dev, ref, strided), PAD)
+    aw = 2 * r + size
+    roi = refp[PAD - r:PAD - r + (ny - 1) * size + aw,
+               PAD - r:PAD - r + (nx - 1) * size + aw]
+    assert (roi.data_ptr() % 16 == 0 and roi.stride(0) % 4 == 0) == (
+        not strided)
+    kw = dict(size=size, r=r, ny=ny, nx=nx, depth=bit_depth)
+    before = dict(runtime.launches)
+    got = me_ssd._ssd_table_deep(roi, o, **kw)
+    for k in ("ssd_table_deep", "box_energies_deep"):
+        assert runtime.launches[k] == before[k] + 1
+    for k in ("ssd_table", "box_energies"):
+        assert runtime.launches[k] == before[k]
+    _eq(got, me_ssd._ssd_table_deep_plain(roi, o, **kw))
+
+
+@pytest.mark.parametrize("kind", ["random", "zeros_vs_max", "extremes"])
+@pytest.mark.parametrize("bit_depth", [15, 16])
+@pytest.mark.parametrize("size,h,w", [(8, 8, 8), (16, 47, 301),
+                                      (32, 200, 133), (32, 79, 260),
+                                      (16, 1104, 1952), (32, 1184, 2048)])
+def test_box_energies_deep_int32_matches_plain(dev, size, h, w, bit_depth,
+                                               kind):
+    """box_energies_deep's int32 instance (shift 5 or 6) equals the torch
+    integral image of the centred squares on strided int32 views, on
+    planes whose output is no multiple of its band, strip or 4 columns,
+    and at the 1080p shapes of both grids."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    plane = _planes32(kind, h, w, bit_depth, seed=h + w + bit_depth)[0]
+    p = _to_card(dev, plane, True)
+    shift, mid = me_ssd.deep_centring(bit_depth)
+    before = runtime.launches["box_energies_deep"]
+    got = me_ssd.box_energies(p, size, shift, mid)
+    assert runtime.launches["box_energies_deep"] == before + 1
+    assert got.shape == (h - size + 1, w - size + 1)
+    rc = (p.to(torch.int32) >> shift) - mid
+    _eq(got, me_ssd._box_energies(rc * rc, size))
+
+
+@pytest.mark.parametrize("kind", ["random", "extremes", "zeros_vs_max",
+                                  "flat"])
+@pytest.mark.parametrize("bit_depth", [15, 16])
+@pytest.mark.parametrize("h,w", [(40, 72), (88, 136), (104, 168),
+                                 (1080, 1920)])
+def test_intra_screen_int32_matches_plain(dev, h, w, bit_depth, kind):
+    """The prescreen's int32 instance (sizes 4 to 32, one launch each) at
+    15 and 16 bits against its plain version: samples of 0, 2^15 and
+    2^bit_depth - 1 (a sign-extended staging would turn 2^15 and above
+    negative), partly empty last thread blocks, flat patches where modes
+    tie, and mode costs that tie too."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import intra_screen
+    y = _planes32(kind, h, w, bit_depth, seed=h + bit_depth)[0]
+    if kind == "extremes":
+        y[:8, :8] = 1 << 15
+    p = np.full((h + 1, w + 1), 1 << (bit_depth - 1), np.int32)
+    p[1:, 1:] = y
+    plane = torch.from_numpy(p).to(dev)
+    rng = np.random.default_rng(w)
+    for lam in (np.zeros(35), [2, 3] + [6] * 24 + [3] + [6] * 8,
+                rng.integers(0, 90, 35)):
+        lam_tab = torch.tensor(np.asarray(lam, np.int32), device=dev)
+        before = runtime.launches["intra_screen"]
+        got = intra_screen.intra_screen(plane, lam_tab, bit_depth=bit_depth)
+        assert runtime.launches["intra_screen"] == before + 4
+        exp = intra_screen.intra_screen_plain(plane, lam_tab,
+                                              bit_depth=bit_depth)
+        for a, b in zip(got, exp):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            _eq(a, b)
+
+
+@pytest.mark.parametrize("depth", [15, 16])
+@pytest.mark.parametrize("count", [1, 2, 4, 8])
+def test_wp_apply_multi_int32_matches_plain(dev, count, depth):
+    """wp_apply's int32 instance: one launch over `count` int32 planes
+    against the plain version: padded 1080p planes, odd-sized planes (the
+    one-by-one tail), views that start 4 bytes off (the unaligned path),
+    identity triples, and samples at 0 and 2^depth - 1."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    rng = np.random.default_rng(count * 16 + depth)
+    shapes = [(1240, 2080), (37, 53), (64, 96), (1240, 2080), (31, 17),
+              (64, 96), (8, 8), (1240, 2080)][:count]
+    planes = []
+    for k, (h, w) in enumerate(shapes):
+        a = rng.integers(0, 1 << depth, h * w + 1).astype(np.int32)
+        a[:3] = (0, (1 << depth) - 1, 1 << 15)
+        big = torch.from_numpy(a).to(dev)
+        planes.append((big[1:] if k % 3 == 2 else big[:-1]).view(h, w))
+    triples = [(45, 12, 6), (1, 0, 0), (-20, 7, 3), (255, 127, 7),
+               (1, 0, 0), (0, 9, 2), (-128, -128, 7), (7, -3, 0)][:count]
+    before = runtime.launches["wp_apply"]
+    got = me_ssd.wp_apply_multi(planes, triples, depth)
+    assert runtime.launches["wp_apply"] == before + 1
+    exp = me_ssd.wp_apply_multi_plain(planes, triples, depth)
+    assert len(got) == count
+    for g, e, p in zip(got, exp, planes):
+        assert g.dtype == p.dtype == torch.int32 and g.shape == p.shape
+        _eq(g, e)
+
+
+def test_pad_ref_device_int32_on_card(dev):
+    """The reference padding of an int32 plane (16-bit samples) on the
+    card equals numpy's edge padding, a pad wider than the plane
+    included."""
+    from hevc_tpu_torch.ops import me_ssd
+    rng = np.random.default_rng(5)
+    for h, w, pad in ((1080, 1920, 80), (7, 5, 80)):
+        plane = rng.integers(0, 1 << 16, (h, w)).astype(np.int32)
+        got = me_ssd.pad_ref_device(torch.from_numpy(plane).to(dev), pad)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      np.pad(plane, pad, mode="edge"))
+
+
+@pytest.mark.parametrize("cfg_name,n", [
+    ("encoder_intra_main_rext.cfg", 3), ("encoder_lowdelay_main_rext.cfg", 5),
+    ("encoder_randomaccess_main_rext.cfg", 9)])
+def test_16bit_encode_on_card_matches_cpu(dev, cfg_name, n):
+    """16-bit intra, low-delay B and random access (the int32 prescreen and
+    deep search, the HBD engine) under the Main-RExt cfgs: identical bytes
+    on the card and on the CPU."""
+    import os
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.encoder.top import EncoderTop
+    from hevc_tpu_torch.io.cfg import EncoderConfig, parse_cfg_file
+    from test_torch_helpers import CFG_DIR
+    frames = [[(p.astype(np.int32) << 8) | p for p in f]
+              for f in moving_frames(n, 128, 80, seed=16)]
+
+    def run(device):
+        cfg = parse_cfg_file(os.path.join(CFG_DIR, cfg_name),
+                             EncoderConfig())
+        cfg.width, cfg.height, cfg.frames_to_encode = 128, 80, n
+        cfg.input_bit_depth = cfg.internal_bit_depth = 16
+        enc = EncoderTop(cfg, device=device)
+        return b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
+    runtime.reset_launches()
+    on_card = run("cuda")
+    key = "intra_screen" if "intra" in cfg_name else "ssd_table_deep"
+    assert runtime.launches[key] > 0
+    assert on_card == run("cpu")

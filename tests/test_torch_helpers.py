@@ -25,18 +25,23 @@ REF_NATIVE_DIR = os.path.join(REPO, "hevc_tpu", "entropy", "native")
 REF_NATIVE_BUILDS = os.path.join(REPO, ".test_build", "hevc_tpu_native")
 
 
+REF_HBD_LIB = "libhevc_entropy_hbd.so"
+
+
 def reference_native_lib():
     """Path of hevc_tpu's native library, built once into a private
-    directory keyed by a hash of its sources and Makefile.
+    directory keyed by a hash of its sources and Makefile; its
+    high-bit-depth build (int32 samples, `make hbd`) lies beside it, as
+    REF_HBD_LIB.
 
     hevc_tpu's loader runs `make` beside its sources with no lock, so test
     workers that load it at the same moment on a fresh checkout can read a
     half-linked library. Here the sources are copied into a directory of
-    their own and built under an exclusive file lock; the finished
-    directory appears by one rename."""
+    their own and both builds made under an exclusive file lock; the
+    finished directory appears by one rename."""
     names = sorted(f for f in os.listdir(REF_NATIVE_DIR)
                    if f.endswith((".cpp", ".h")) or f == "Makefile")
-    digest = hashlib.sha256()
+    digest = hashlib.sha256(b"standard+hbd")
     for name in names:
         digest.update(name.encode())
         with open(os.path.join(REF_NATIVE_DIR, name), "rb") as fh:
@@ -53,21 +58,28 @@ def reference_native_lib():
             for name in names:
                 shutil.copy(os.path.join(REF_NATIVE_DIR, name), tmp)
             subprocess.run(["make", "-s", f"-j{os.cpu_count() or 1}",
-                            "libhevc_entropy.so"], cwd=tmp, check=True)
+                            "libhevc_entropy.so", "hbd"], cwd=tmp,
+                           check=True)
             os.replace(tmp, out)
         # newer than every source, so hevc_tpu's loader never runs make
         os.utime(lib)
+        os.utime(os.path.join(out, REF_HBD_LIB))
     return lib
 
 
 @pytest.fixture(autouse=True, scope="module")
 def private_reference_native():
-    """Point hevc_tpu's loader at reference_native_lib() for one test
-    module (import this fixture into every module that runs hevc_tpu's
-    encoder or decoder), and forget the libraries it loaded before."""
+    """Point hevc_tpu's loader at reference_native_lib() and its
+    high-bit-depth build for one test module (import this fixture into
+    every module that runs hevc_tpu's encoder or decoder), and forget the
+    libraries it loaded before: hevc_tpu's own unlocked `make hbd` never
+    runs beside its sources."""
     from hevc_tpu.entropy import cabac
+    lib = reference_native_lib()
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(cabac, "_LIB_PATH", reference_native_lib())
+        mp.setattr(cabac, "_LIB_PATH", lib)
+        mp.setattr(cabac, "_HBD_PATH",
+                   os.path.join(os.path.dirname(lib), REF_HBD_LIB))
         mp.setattr(cabac, "_libs", {})
         yield
 

@@ -133,8 +133,8 @@ def test_packed_outputs_with_tying_mode_costs(lam):
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
-    with pytest.raises(NotImplementedError):
-        intra_screen.screen_frame(np.zeros((16, 16), np.int32), 16, 1.0,
+    with pytest.raises(ValueError):
+        intra_screen.screen_frame(np.zeros((16, 16), np.int32), 17, 1.0,
                                   device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

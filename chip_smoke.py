@@ -65,11 +65,19 @@ Phases, each printed on its own line with its seconds:
  7f. encode 1920x1080 random access at 16 bits (HM's
      encoder_randomaccess_main_rext settings, the IDR and one GOP of 8):
      the int32 instances of the prescreen and the deep search run, and the
-     8-bit search kernels do not;
+     8-bit search kernels do not; then again with the refine tables
+     (HEVC_TPU_ME_REFINE=1): their int32 instance runs;
  7g. encode 416x240 at 16 bits on the card and on the CPU: intra, low-delay
-     B and random access under the Main-RExt cfgs, and an LDP fade with
-     WeightedPredP=1 (the int32 wp_apply): each pair of streams must match;
-  8. decode every stream of phases 3-7g with the port's own decoder: every
+     B and random access under the Main-RExt cfgs, an LDP fade with
+     WeightedPredP=1 (the int32 wp_apply), and random access with the
+     refine tables: each pair of streams must match;
+ 7h. the mesh (hevc_tpu_torch.parallel) as two shards on the one card, and
+     over every card where there are more: me_grids_frames over 8 1080p
+     frames and me_grid_spatial on one, equal to the unsharded search, with
+     both times; encode_clip at 416x240, LDP and RA, equal to the unsharded
+     encode with HEVC_TPU_ME_PREFETCH=0, and its lookahead mode equal to
+     the unsharded lookahead mode;
+  8. decode every stream of phases 3-7h with the port's own decoder: every
      picture's MD5 SEI must check and the picture counts must match;
   9. encode 4 LDP (without and with the refine tables), 2 all-intra, 9
      RA-Main10, 2 high-throughput 4:4:4 intra and 9 16-bit RA 1080p frames
@@ -91,7 +99,10 @@ same bytes, and each refine grid with its half stage alone (a probe entry
 that no encoder path calls). It holds the int32 instances of 15-16-bit
 video (intra_screen, ssd_table_deep with box_energies_deep, wp_apply) to
 their plain versions on the frames at 16 and 15 bits and on planes of
-extreme samples, and times each at 16 bits.
+extreme samples, and times each at 16 bits; refine_tables' int32 instance
+likewise, at SearchRange 78 too; and the test-only device twins
+(ops/me_gpu_mode.py, ops/me_exact.py, the transforms and quantizers) to
+their numpy twins.
 The input is synthetic moving texture made from --seed with numpy.
 The last two lines are a JSON object with every kernel's numbers and the
 result {"ok": true, "device": {...}}. Any failed phase exits non-zero.
@@ -138,6 +149,10 @@ RA_REXT_CFG = os.path.join(HERE, "hevc_tpu_torch", "cfg",
 HBM_BPS = 3.35e12
 INT8_TC_OPS = 1979e12
 SCALAR32_OPS = 67e12
+# 32-bit integer ops/s outside the tensor cores: half the float32 rate (an
+# SM issues 64 INT32 lanes a clock against 128 FP32, a multiply-add counted
+# as two operations in both)
+INT32_OPS = SCALAR32_OPS / 2
 # VABSDIFF4 (PTX vabsdiff4) instructions a clock on one SM of compute
 # capability 9.0, from the CUDA C++ Programming Guide's table of arithmetic
 # instruction throughput; times the SM count and the card's maximum SM clock
@@ -483,6 +498,8 @@ def check_kernels(frames, seed, results):
     check_intra_screen(frames, results, wide=True)
     check_deep_kernels(frames, results, wide=True)
     check_option_kernels(frames, results)
+    check_refine_int32(frames, results)
+    check_twins(dev)
 
     mma_probe(dev)
     rate = vabsdiff4_peak(dev)
@@ -1048,6 +1065,254 @@ def check_option_kernels(frames, results):
     results["refine_tables"]["half_queued_ms"] = acc["refine_tables"][
         "half_q_ms"]
     results["wp_apply"]["by_planes"] = by_planes
+
+
+def check_refine_int32(frames, results):
+    """refine_tables' int32 instance (int32 planes at 15 and 16 bits)
+    against its plain version at 1080p shapes, exactly: both grids of the
+    main path at the MVs the search finds and with every MV on a corner or
+    edge of its window, and both block sizes at SearchRange 78 (the WIDE
+    layout) with the MVs on the window's edges; the half-stage probe
+    against the plain half stage. At 16 bits each grid is timed, queued
+    and host, beside its half stage alone; the bound is its operations
+    (refine_ops) over the card's 32-bit integer rate, half the float32
+    rate (64 int32 lanes a clock on an SM against 128)."""
+    from hevc_tpu_torch.ops import me_ssd
+    dev = torch.device("cuda")
+    h, w = frames[0].shape
+    a = {"ms": 0.0, "q_ms": 0.0, "half_q_ms": 0.0, "plain_ms": 0.0,
+         "err": 0, "bytes": 0.0, "ops": 0.0}
+    for bd in (15, 16):
+        orig = torch.from_numpy(deep_plane(frames[1], bd)).to(dev)
+        refp = me_ssd.pad_ref_device(torch.from_numpy(
+            deep_plane(frames[0], bd)).to(dev), PAD)
+        phases = me_ssd._build_phases_plain(refp, bd)
+        for size, r in ((32, 64), (16, 16), (32, 78), (16, 78)):
+            ny, nx, nyx = h // size, w // size, 2 * r + 1
+            kwp = dict(size=size, r=r, ny=ny, nx=nx, pad=PAD)
+            kw = dict(kwp, depth=bd)
+            ends = torch.tensor([(dy + r) * nyx + dx + r for dy in (-r, 0, r)
+                                 for dx in (-r, 0, r)], dtype=torch.int32,
+                                device=dev).repeat(ny * nx // 9 + 1)
+            cases = [("edges", ends[:ny * nx])]
+            if r != 78:
+                found = me_ssd.me_idx_frame(
+                    orig, refp, me_ssd._bits0_dev(r, dev), 100, **kw)
+                cases.insert(0, ("found", found))
+            for mvs, gidx in cases:
+                got = me_ssd.refine_tables(orig, refp, gidx, **kw)
+                exp = me_ssd._refine_direct_plain(orig, phases, gidx, **kwp)
+                e = max(max_abs_err(x, y) for x, y in zip(got, exp))
+                log(f"  refine_tables_int32 {bd}-bit {size}x{size} r={r} "
+                    f"({ny * nx} blocks, MVs {mvs}): max_abs_err {e}; "
+                    f"offsets used {torch.unique(got[0]).numel()} of 49")
+                if e != 0:
+                    raise AssertionError("refine_tables (int32) disagrees "
+                                         "with its plain version")
+                a["err"] = max(a["err"], e)
+            if r == 78:
+                continue
+            ob, base_r, base_c = me_ssd._refine_setup(orig, found, **kwp)
+            _, cy, cx, hmin = me_ssd._refine_half_plain(ob, phases, base_r,
+                                                        base_c, size)
+            poff, phalf = refine_launch("hevc_refine_tables_half", orig, refp,
+                                        found, **kw)
+            if max(max_abs_err(poff, (cy + 3) * 7 + cx + 3),
+                   max_abs_err(phalf, hmin)) != 0:
+                raise AssertionError("the int32 refine_tables half-stage "
+                                     "probe disagrees with the plain half "
+                                     "stage")
+            if bd != 16:
+                continue
+            fn = lambda: me_ssd.refine_tables(  # noqa: E731
+                orig, refp, found, **kw)
+            ms, q_ms = cuda_ms(fn, 10), cuda_ms(fn, 20, queued=True)
+            half_q = cuda_ms(lambda: refine_launch(
+                "hevc_refine_tables_half", orig, refp, found, **kw), 20,
+                queued=True)
+            plain = cuda_ms(lambda: me_ssd._refine_direct_plain(
+                orig, me_ssd._build_phases_plain(refp, bd), found, **kwp), 2)
+            ops = refine_ops(size, cy, cx)
+            a["ms"] += ms
+            a["q_ms"] += q_ms
+            a["half_q_ms"] += half_q
+            a["plain_ms"] += plain
+            a["ops"] += ops
+            a["bytes"] += 4.0 * (refp.numel() + ny * nx * size * size
+                                 + 3 * ny * nx)
+            log(f"  refine_tables_int32 16-bit {size}x{size} r={r}: "
+                f"{ms:.4f} ms (queued {q_ms:.4f}; its half stage alone, "
+                f"probe, queued {half_q:.4f}, so the quarter stage "
+                f"{q_ms - half_q:.4f}), {ops / 1e9:.3f} G ops (bound "
+                f"{ops / INT32_OPS * 1e3:.4f} ms, "
+                f"{100 * ops / INT32_OPS * 1e3 / q_ms:.1f}% queued); plain "
+                f"{plain:.3f} ms")
+        del phases
+    bms, by = bound_ms(a["bytes"], a["ops"], INT32_OPS)
+    results["refine_tables_int32"] = {
+        "name": "refine_tables_int32", "route": "cuda",
+        "source": "hevc_tpu_torch/csrc/me_refine.cu",
+        "replaces": "hevc_tpu/ops/me_mxu.py:370", "max_abs_err": a["err"],
+        "ms": a["ms"], "plain_ms": a["plain_ms"], "bound_ms": bms,
+        "bound_by": by, "library_ms": None, "queued_ms": a["q_ms"],
+        "half_queued_ms": a["half_q_ms"]}
+    log(f"  refine_tables_int32 (16-bit, both grids): kernel_ms "
+        f"{a['ms']:.4f} (queued {a['q_ms']:.4f}; half stages "
+        f"{a['half_q_ms']:.4f}) plain_ms {a['plain_ms']:.3f} bound_ms "
+        f"{bms:.4f} ({by}, {a['ops'] / 1e9:.3f} G ops over "
+        f"{INT32_OPS / 1e12:.1f} T/s, {a['bytes'] / 1e6:.2f} MB); share of "
+        f"the bound (queued) {100 * bms / a['q_ms']:.1f}%")
+
+
+def check_twins(dev):
+    """The test-only device twins (torch on the card, no kernel of their
+    own; nothing on an encoder path calls them) against their numpy twins,
+    exactly, each timed on the host clock around the call (it returns host
+    values or is synchronised): the GPU-mode tables of one CTU, the
+    HM-exact full search of one 64x64 block, and the transforms and
+    quantizers of 2040 32x32 blocks of 10-bit residuals."""
+    from hevc_tpu_torch.ops import me_exact, me_gpu_mode, quant, transform
+    rng = np.random.default_rng(3)
+    orig = rng.integers(0, 256, (128, 192), np.int64)
+    ref = rng.integers(0, 256, (128, 192), np.int64)
+    ref[8:72, 72:136] = orig[4:68, 68:132]
+    refp = np.pad(ref, 80, mode="edge")
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    args = (orig[64:128, 128:192], refp, 128, 64, 192, 128, (-9, 14), 8,
+            400000)
+    got, ms = timed(lambda: me_gpu_mode.gpu_mode_tables(*args, device=dev))
+    if any((u != v).any() for u, v in zip(
+            got, me_gpu_mode.gpu_mode_tables_np(*args))):
+        raise AssertionError("gpu_mode_tables disagrees with its numpy twin")
+    log(f"  twin gpu_mode_tables (593 partitions, 17x17 positions): "
+        f"{ms:.3f} ms, equal to its numpy twin")
+    plane = rng.integers(0, 1 << 10, (128, 192)).astype(np.int32)
+    cur = np.roll(plane, (2, -3), (0, 1))
+    args = (cur[32:96, 64:128], np.pad(plane, 96, mode="edge"), 64, 32,
+            (3, -5), 300 * 256, 32, 192, 128)
+    got, ms = timed(lambda: me_exact.hm_full_search(*args, device=dev))
+    if got != me_exact.hm_full_search_np(*args):
+        raise AssertionError("hm_full_search disagrees with its numpy twin")
+    log(f"  twin hm_full_search (64x64, SearchRange 32): {ms:.3f} ms, "
+        f"equal to its numpy twin {got}")
+    r = rng.integers(-1023, 1024, (2040, 32, 32))
+    c, ms_f = timed(lambda: transform.forward_transform(
+        r, size=32, bit_depth=10, device=dev))
+    lv, ms_q = timed(lambda: quant.quantize(c, size=32, qp=32, bit_depth=10,
+                                            device=dev))
+    dq, ms_d = timed(lambda: quant.dequantize(lv, size=32, qp=32,
+                                              bit_depth=10, device=dev))
+    back, ms_i = timed(lambda: transform.inverse_transform(
+        dq, size=32, bit_depth=10, device=dev))
+    for k in range(0, 2040, 97):
+        e_c = transform.forward_transform_np(r[k], 32, 10)
+        e_l = quant.quantize_np(e_c, 32, 32, 10)
+        e_d = quant.dequantize_np(e_l, 32, 32, 10)
+        for got, exp in ((c, e_c), (lv, e_l), (dq, e_d), (
+                back, transform.inverse_transform_np(e_d, 32, 10))):
+            if (got[k].cpu().numpy() != exp).any():
+                raise AssertionError("a transform/quant twin disagrees with "
+                                     "its numpy twin")
+    log(f"  twins on 2040 32x32 blocks, 10 bits: forward_transform "
+        f"{ms_f:.3f} ms, quantize {ms_q:.3f}, dequantize {ms_d:.3f}, "
+        f"inverse_transform {ms_i:.3f}; equal to their numpy twins")
+
+
+def check_mesh(tmp, seed):
+    """Phase 7h: the mesh of two shards on the one card, Mesh([cuda:0,
+    cuda:0]), and of every card when there are more. me_grids_frames over
+    8 1080p frames and me_grid_spatial on one, each equal to the
+    unsharded search, with both times (host clock, 3 runs after a
+    warm-up, the least); encode_clip at 416x240 (LDP and RA) equal to the
+    unsharded encode with HEVC_TPU_ME_PREFETCH=0, and its lookahead mode
+    equal to the unsharded lookahead mode. Every stream goes to the
+    decode phase."""
+    from hevc_tpu_torch import parallel, runtime
+    from hevc_tpu_torch.io.cfg import EncoderConfig, parse_cfg_file
+    from hevc_tpu_torch.ops.interp import pad_plane
+    dev = torch.device("cuda", 0)
+    meshes = [parallel.Mesh([dev, dev])]
+    if torch.cuda.device_count() > 1:
+        meshes.append(parallel.make_mesh(torch.cuda.device_count()))
+
+    def best_of(fn):
+        out = fn()
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        return out, 1e3 * min(secs)
+
+    f = clip_frames(1920, 1080, 9, seed)
+    origs = np.stack([x[0] for x in f[1:]])
+    refs = np.stack([pad_plane(x[0].astype(np.int16), PAD) for x in f[:-1]])
+    kw = dict(size=32, search_range=64, lam_fp=40000)
+    exp_f, ms_f = best_of(lambda: parallel.me_grids_frames(origs, refs,
+                                                           **kw))
+    exp_s, ms_s = best_of(lambda: parallel.me_grid_spatial(
+        origs[0], refs[0], mesh=parallel.Mesh([dev]), **kw))
+    if any((a[0] != b).any() for a, b in zip(exp_f, exp_s)):
+        raise AssertionError("me_grid_spatial on one device disagrees with "
+                             "me_grids_frames")
+    log(f"  unsharded: me_grids_frames (8 1080p frames, 32x32, r=64) "
+        f"{ms_f:.2f} ms; me_grid_spatial (one frame) {ms_s:.2f} ms")
+    for mesh in meshes:
+        runtime.reset_launches()
+        got_f, mf = best_of(lambda: parallel.me_grids_frames(
+            origs, refs, mesh=mesh, **kw))
+        got_s, mss = best_of(lambda: parallel.me_grid_spatial(
+            origs[0], refs[0], mesh=mesh, **kw))
+        n = dict(runtime.launches)
+        if any((a != b).any() for a, b in zip(got_f, exp_f)) or any(
+                (a != b[0]).any() for a, b in zip(got_s, exp_f)):
+            raise AssertionError(f"{mesh}: the sharded grids differ from "
+                                 f"the unsharded ones")
+        log(f"  {mesh}: me_grids_frames {mf:.2f} ms ({mf / ms_f:.3f}x), "
+            f"me_grid_spatial {mss:.2f} ms ({mss / ms_s:.3f}x); grids "
+            f"equal; launches ssd_table {n['ssd_table']}, argmin_two_pass "
+            f"{n['argmin_two_pass']}")
+    frames = clip_frames(416, 240, N_RA, seed)
+    for name, cfg_path in (("mesh_ldp", LDP_CFG), ("mesh_ra", RA_CFG)):
+        cfg = parse_cfg_file(cfg_path, EncoderConfig())
+        cfg.width, cfg.height, cfg.frames_to_encode = 416, 240, N_RA
+        with env_set({"HEVC_TPU_ME_PREFETCH": "0"}):
+            plain, _ = parallel.encode_clip(cfg, frames)
+        for k, mesh in enumerate(meshes):
+            runtime.reset_launches()
+            t0 = time.perf_counter()
+            got, _ = parallel.encode_clip(cfg, frames, mesh=mesh)
+            secs = time.perf_counter() - t0
+            log(f"  {name} {mesh}: {len(got)} bytes md5 "
+                f"{hashlib.md5(got).hexdigest()} {secs:.2f} s; unsharded "
+                f"(HEVC_TPU_ME_PREFETCH=0) md5 "
+                f"{hashlib.md5(plain).hexdigest()}; ssd_table launches "
+                f"{runtime.launches['ssd_table']}")
+            if got != plain:
+                raise AssertionError(f"{name}: the mesh stream differs from "
+                                     f"the unsharded one")
+            streams[f"{name}_{k}"] = (got, N_RA)
+    cfg = parse_cfg_file(LDP_CFG, EncoderConfig())
+    cfg.width, cfg.height, cfg.frames_to_encode = 416, 240, N_RA
+    plain, _ = parallel.encode_clip(cfg, frames, lookahead=True)
+    for k, mesh in enumerate(meshes):
+        got, _ = parallel.encode_clip(cfg, frames, mesh=mesh, lookahead=True)
+        log(f"  mesh_lookahead {mesh}: {len(got)} bytes md5 "
+            f"{hashlib.md5(got).hexdigest()}; unsharded lookahead md5 "
+            f"{hashlib.md5(plain).hexdigest()}")
+        if got != plain:
+            raise AssertionError("the lookahead mode's mesh stream differs "
+                                 "from its unsharded one")
+        streams[f"mesh_lookahead_{k}"] = (got, N_RA)
 
 
 def mma_probe(dev):
@@ -1917,25 +2182,47 @@ def main():
             # at 16 bits every one of these launches is an int32 instance
             for k in ("ssd_table_deep", "box_energies_deep", "intra_screen"):
                 results[k + "_int32"]["launches"] = ra16_launches[k]
+            # the same clip with the refine tables: their int32 instance
+            env = {"HEVC_TPU_ME_REFINE": "1"}
+            with env_set(env):
+                runtime.reset_launches()
+                timers.reset()
+                timers.enabled = True
+                stream, secs, out, _ = encode(
+                    tmp, "hd_ra16_refine", 1920, 1080, N_RA, args.seed,
+                    "cuda", cfg=RA_REXT_CFG, bit_depth=16)
+                timers.enabled = False
+            n = runtime.launches["refine_tables"]
+            log_encode("hd_ra16_refine", env, stream, secs, out,
+                       timers.summary(), f"refine_tables launches {n}")
+            if n <= 0:
+                raise AssertionError("hd_ra16_refine: refine_tables was "
+                                     "never launched")
+            results["refine_tables_int32"]["launches"] = n
 
-        with Phase("7g 416x240 16-bit intra, low-delay B, random access and "
-                   "weighted prediction cuda vs cpu"):
-            for name, cfg, n, extra, fade, key in (
+        with Phase("7g 416x240 16-bit intra, low-delay B, random access, "
+                   "weighted prediction and refine tables cuda vs cpu"):
+            refine = {"HEVC_TPU_ME_REFINE": "1"}
+            for name, cfg, n, extra, fade, key, env in (
                     ("cif16_intra", INTRA_REXT_CFG, 3, [], 0.0,
-                     "intra_screen"),
-                    ("cif16_ldb", LDB_REXT_CFG, 5, [], 0.0, "ssd_table_deep"),
+                     "intra_screen", {}),
+                    ("cif16_ldb", LDB_REXT_CFG, 5, [], 0.0, "ssd_table_deep",
+                     {}),
                     ("cif16_ra", RA_REXT_CFG, N_RA, [], 0.0,
-                     "ssd_table_deep"),
+                     "ssd_table_deep", {}),
                     ("cif16_wp", LDP_CFG, N_FADE,
                      ["--WeightedPredP=1", "--Profile=main-RExt"], FADE,
-                     "wp_apply")):
+                     "wp_apply", {}),
+                    ("cif16_ra_refine", RA_REXT_CFG, N_RA, [], 0.0,
+                     "refine_tables", refine)):
                 kw = dict(cfg=cfg, bit_depth=16, extra=extra, fade=fade)
-                runtime.reset_launches()
-                s_gpu, t_gpu, _, _ = encode(tmp, f"{name}_gpu", 416, 240, n,
-                                            args.seed, "cuda", **kw)
-                launched = runtime.launches[key]
-                s_cpu, t_cpu, _, _ = encode(tmp, f"{name}_cpu", 416, 240, n,
-                                            args.seed, "cpu", **kw)
+                with env_set(env):
+                    runtime.reset_launches()
+                    s_gpu, t_gpu, _, _ = encode(tmp, f"{name}_gpu", 416, 240,
+                                                n, args.seed, "cuda", **kw)
+                    launched = runtime.launches[key]
+                    s_cpu, t_cpu, _, _ = encode(tmp, f"{name}_cpu", 416, 240,
+                                                n, args.seed, "cpu", **kw)
                 log(f"  {name}: cuda {len(s_gpu)} bytes md5 "
                     f"{hashlib.md5(s_gpu).hexdigest()} {t_gpu:.2f} s; cpu "
                     f"{len(s_cpu)} bytes md5 {hashlib.md5(s_cpu).hexdigest()}"
@@ -1947,6 +2234,9 @@ def main():
                     raise AssertionError(f"{name}: {key} was never launched")
                 if key == "wp_apply":
                     results["wp_apply_int32"]["launches"] = launched
+
+        with Phase("7h the mesh: two shards on one card (and every card)"):
+            check_mesh(tmp, args.seed)
 
         with Phase("8 decode every stream with the port's decoder"):
             from hevc_tpu_torch.decoder.top import DecoderTop
@@ -1983,7 +2273,8 @@ def main():
              "me_planes", "intra_screen", "ssd_table_deep",
              "box_energies_deep", "wp_apply", "refine_tables",
              "intra_screen_int32", "ssd_table_deep_int32",
-             "box_energies_deep_int32", "wp_apply_int32"]
+             "box_energies_deep_int32", "wp_apply_int32",
+             "refine_tables_int32"]
     kernels = [results[k] for k in order]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -44,15 +44,22 @@
 //  5. the host's strict-< orders replayed on the gathered costs. Barriers:
 //     five a 32x32 search block (after the window, the H caches, the P
 //     caches and each stage's costs); warp barriers only for 16x16.
-// The arithmetic runs in float32 on the FMA pipes: every value is an
-// integer below 2^24 (|H_f| <= 112 * 16383, a vertical sum over H below
-// 1.3e7, a tile's sum of |coefficient| at most 64 * 8 * 16383), so each sum
-// and product is exact, and each of the reference's shifts is one fma
-// rounded down onto a 2^23 offset (kMagic). The shift order is the
+// The 8-14-bit instances (uint8 and int16 planes) run in float32 on the FMA
+// pipes: every value is an integer below 2^24 (|H_f| <= 112 * 16383, a
+// vertical sum over H below 1.3e7, a tile's sum of |coefficient| at most
+// 64 * 8 * 16383), so each sum and product is exact, and each of the
+// reference's shifts is one fma rounded down onto a 2^23 offset (kMagic).
+// The 15-16-bit instance (int32 planes, me_dtype) runs the same program in
+// int32 on the integer pipes, each shift a plain arithmetic >>: at 16 bits
+// a vertical sum over H reaches about 3.2e7 and a tile's sum of
+// |coefficient| 3.4e7, past 2^24, but every intermediate stays below the
+// largest tile SATD, 64 * 64 * 65535 < 2^31 (RefineMath holds the two
+// arithmetics). The shift order is the
 // reference's: finish(acc >> s1) = clip((acc + 32) >> 6) and
 // finish(V >> 6) = clip((V + (32 << hr)) >> (hr + 6)); prediction samples
 // are clipped to 2^depth - 1. Bound: operations, the interpolation's
-// multiply-adds and the Hadamard's additions over the 67 T/s float32 rate.
+// multiply-adds and the Hadamard's additions over the 67 T/s float32 rate
+// (the int32 instance over the card's int32 rate, half of it).
 // nvcc 12.8 for sm_90a: 56-64 registers, no spills; 40272 bytes of dynamic
 // shared memory a 32x32 thread block, 24992 a 16x16 one (two search
 // blocks), 122832 and 75296 with WIDE (chip_smoke.py prints them).
@@ -65,6 +72,7 @@
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -187,7 +195,65 @@ cudaError_t launch_wp(const WpPlanes& a, long long total,
 }
 
 // ----------------------------------------------------------- refine_tables
+// A float in [2^23, 2^24) is an integer plus kMagic's 2^23 offset:
+// floor(x * scale) + kMagic is one fma rounded down (exact for
+// |x * scale| < 2^22), and the float32 instances keep prediction samples in
+// that form, clipped to [kMagic, kMagic + maxv].
+constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
+
+// The arithmetic of an instance: A is float for uint8 and int16 planes,
+// int for int32 ones. kOff is the offset values are kept at after a shift
+// (kMagic, or 0); a shift by s travels as Shift (the scale 2^-s, or s).
+template <typename A>
+struct RefineMath;
+
+template <>
+struct RefineMath<float> {
+  using V4 = float4;
+  using Shift = float;
+  static constexpr float kOff = kMagic;
+  static constexpr float kShr1 = 0.5f, kShr6 = 1.f / 64;
+  static __host__ Shift shift(int s) { return std::ldexp(1.f, -s); }
+  // floor(x * 2^-s) + kOff
+  static __device__ __forceinline__ float shr(float x, float scale) {
+    return __fmaf_rd(x, scale, kMagic);
+  }
+  static __device__ __forceinline__ float clip(float x, float maxv) {
+    return fminf(fmaxf(x, kMagic), kMagic + maxv);
+  }
+  static __device__ __forceinline__ float absmax(float a, float b) {
+    return fmaxf(fabsf(a), fabsf(b));
+  }
+  static __device__ __forceinline__ int value(float x) {
+    return __float_as_int(x) - __float_as_int(kMagic);
+  }
+};
+
+template <>
+struct RefineMath<int> {
+  using V4 = int4;
+  using Shift = int;
+  static constexpr int kOff = 0;
+  static constexpr int kShr1 = 1, kShr6 = 6;
+  static __host__ Shift shift(int s) { return s; }
+  static __device__ __forceinline__ int shr(int x, int s) { return x >> s; }
+  static __device__ __forceinline__ int clip(int x, int maxv) {
+    return min(max(x, 0), maxv);
+  }
+  static __device__ __forceinline__ int absmax(int a, int b) {
+    return max(abs(a), abs(b));
+  }
+  static __device__ __forceinline__ int value(int x) { return x; }
+};
+
+// the arithmetic of planes of T: int32 for int32_t (15-16 bits), float32
+// for uint8_t and int16_t (8-14 bits)
+template <typename T>
+using RefineArith = std::conditional_t<std::is_same_v<T, int32_t>, int, float>;
+
+template <typename A>
 struct RefineArgs {
+  using Shift = typename RefineMath<A>::Shift;
   const void* orig;
   long long ostride;
   const void* ref;  // padded reference plane [ref_h, ref_w]
@@ -195,9 +261,14 @@ struct RefineArgs {
   int ref_h, ref_w;
   const int* gidx;  // flat (dy, dx) argmin index per block
   int r, ny, nx, pad;
-  // the bit depth's interpolation: the first pass's scale 2^-s1, finish's
-  // offset 2^(hr-1) and scale 2^-hr, finish(V >> 6) as (V + rnd2) * 2^-sh2
-  float s1_scale, off_u, hr_scale, rnd2, sh2_scale, maxv;
+  // the bit depth's interpolation: the first pass's shift s1, finish's
+  // offset 2^(hr-1) and shift hr, finish(V >> 6) as (V + rnd2) >> sh2
+  Shift s1;
+  A off_u;
+  Shift hr;
+  A rnd2;
+  Shift sh2;
+  A maxv;
   int* off;
   int* half;
 };
@@ -209,38 +280,24 @@ __device__ __forceinline__ int slice_start(int s, int dim) {
   return min(max(s < 0 ? s + dim : s, 0), dim - SIZE);
 }
 
-// The arithmetic runs in float32 on integers below 2^24, so every sum and
-// product is exact in any order. A float in [2^23, 2^24) is an integer
-// plus kMagic's 2^23 offset: floor(x * scale) + kMagic is one fma rounded
-// down (exact for |x * scale| < 2^22), and prediction samples are kept
-// in that form, clipped to [kMagic, kMagic + maxv].
-constexpr float kMagic = 12582912.0f;  // 1.5 * 2^23
-
-__device__ __forceinline__ float floor_m(float x, float scale) {
-  return __fmaf_rd(x, scale, kMagic);
-}
-
-__device__ __forceinline__ float clip_m(float x, float maxv) {
-  return fminf(fmaxf(x, kMagic), kMagic + maxv);
-}
-
 // init + the HEVC luma interpolation (TComInterpolationFilter) of phase
 // F = 1, 2, 3 at v[i .. i + 7]; the half filter is symmetric.
-template <int F, int N>
-__device__ __forceinline__ float filt(const float (&v)[N], int i,
-                                      float init) {
+template <int F, typename A, int N>
+__device__ __forceinline__ A filt(const A (&v)[N], int i, A init) {
   if constexpr (F == 1)
-    return init - v[i] + 4.f * v[i + 1] - 10.f * v[i + 2] + 58.f * v[i + 3] +
-           17.f * v[i + 4] - 5.f * v[i + 5] + v[i + 6];
+    return init - v[i] + A(4) * v[i + 1] - A(10) * v[i + 2] +
+           A(58) * v[i + 3] + A(17) * v[i + 4] - A(5) * v[i + 5] + v[i + 6];
   else if constexpr (F == 2)
-    return init + 40.f * (v[i + 3] + v[i + 4]) - 11.f * (v[i + 2] + v[i + 5]) +
-           4.f * (v[i + 1] + v[i + 6]) - (v[i] + v[i + 7]);
+    return init + A(40) * (v[i + 3] + v[i + 4]) -
+           A(11) * (v[i + 2] + v[i + 5]) + A(4) * (v[i + 1] + v[i + 6]) -
+           (v[i] + v[i + 7]);
   else
-    return init + v[i + 1] - 5.f * v[i + 2] + 17.f * v[i + 3] +
-           58.f * v[i + 4] - 10.f * v[i + 5] + 4.f * v[i + 6] - v[i + 7];
+    return init + v[i + 1] - A(5) * v[i + 2] + A(17) * v[i + 3] +
+           A(58) * v[i + 4] - A(10) * v[i + 5] + A(4) * v[i + 6] - v[i + 7];
 }
 
-// Shared-memory layout of one search block, in 32-bit words (floats).
+// Shared-memory layout of one search block, in 32-bit words (floats, or
+// ints in the int32 instance).
 // Rows and columns of integer shift -1 start at 0, those of shift 0 at
 // the second offset (1 when the two ranges overlap; apart for WIDE).
 template <int SIZE, bool WIDE>
@@ -305,14 +362,15 @@ __device__ __forceinline__ void refine_sync() {
 }
 
 // v[k] = p[k], k < N <= 15, where p - M is 16-byte aligned
-template <int M, int N>
-__device__ __forceinline__ void load_col(const float* p, float (&v)[N]) {
+template <int M, typename A, int N>
+__device__ __forceinline__ void load_col(const A* p, A (&v)[N]) {
+  using V4 = typename RefineMath<A>::V4;
   constexpr int W = (N + M + 3) / 4;
-  const float4* q = reinterpret_cast<const float4*>(p - M);
-  float t[4 * W];
+  const V4* q = reinterpret_cast<const V4*>(p - M);
+  A t[4 * W];
 #pragma unroll
   for (int w = 0; w < W; ++w) {
-    const float4 x = q[w];
+    const V4 x = q[w];
     t[4 * w] = x.x;
     t[4 * w + 1] = x.y;
     t[4 * w + 2] = x.z;
@@ -323,9 +381,8 @@ __device__ __forceinline__ void load_col(const float* p, float (&v)[N]) {
 }
 
 // the same where the offset m (0 or 1) is known at run time only
-template <int N>
-__device__ __forceinline__ void load_col(const float* p, int m,
-                                         float (&v)[N]) {
+template <typename A, int N>
+__device__ __forceinline__ void load_col(const A* p, int m, A (&v)[N]) {
   if (m)
     load_col<1>(p, v);
   else
@@ -333,65 +390,67 @@ __device__ __forceinline__ void load_col(const float* p, int m,
 }
 
 // One search block's view of shared memory and of its lane.
-template <int SIZE, bool WIDE>
+template <typename A, int SIZE, bool WIDE>
 struct RefineLane {
   using L = RefineLayout<SIZE, WIDE>;
-  const float* win;
-  const float* hc;  // H_1, H_2, H_3
-  float* scr;       // this tile's scratch
+  using M = RefineMath<A>;
+  using Shift = typename M::Shift;
+  const A* win;
+  const A* hc;  // H_1, H_2, H_3
+  A* scr;       // this tile's scratch
   int ty, tx, j;
-  float om[8];      // the lane's original samples + kMagic
-  float off_u, hr_scale, rnd2, sh2_scale, maxv;
+  A om[8];      // the lane's original samples + kOff
+  A off_u, rnd2, maxv;
+  Shift hr, sh2;
 
   // the 8 prediction samples of the lane's tile column at quarter phase
   // (FY, FX), integer shifts sy, sx (0: shift -1, 1: shift 0), subtracted
   // from the originals; SY is sy, known at compile time for 2-D phases
   template <int FY, int FX, int SY = -1>
-  __device__ __forceinline__ void quarter(int sy, int sx,
-                                          float (&d)[8]) const {
+  __device__ __forceinline__ void quarter(int sy, int sx, A (&d)[8]) const {
     const int hcol = (sx ? L::HC1 : 0) + 8 * tx + j;
     const int rb = (sy ? L::R1 : 0) + 8 * ty;
     if constexpr (FY == 0 && FX == 0) {
-      const float* s =
+      const A* s =
           win + (L::R1 + 3 + 8 * ty) * L::WP + L::C1 + 3 + 8 * tx + j;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) d[i] = (om[i] - kMagic) - s[i * L::WP];
+      for (int i = 0; i < 8; ++i) d[i] = (om[i] - M::kOff) - s[i * L::WP];
       return;
     }
-    float p[8];
+    A p[8];
     if constexpr (FY == 0) {  // finish(H_fx) on the integer row
-      float v[8];
+      A v[8];
       load_col<0>(hc + (FX - 1) * L::HCOLS * L::HP + hcol * L::HP + L::R1 +
                       3 + 8 * ty,
                   v);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        p[i] = clip_m(floor_m(v[i] + off_u, hr_scale), maxv);
+        p[i] = M::clip(M::shr(v[i] + off_u, hr), maxv);
     } else if constexpr (FX == 0) {  // finish(V(window) >> s1)
-      const float* s = win + rb * L::WP + L::C1 + 3 + 8 * tx + j;
-      float v[15];
+      const A* s = win + rb * L::WP + L::C1 + 3 + 8 * tx + j;
+      A v[15];
 #pragma unroll
       for (int t = 0; t < 15; ++t) v[t] = s[t * L::WP];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        p[i] = clip_m(floor_m(filt<FY>(v, i, 32.f), 1.f / 64), maxv);
+        p[i] = M::clip(M::shr(filt<FY>(v, i, A(32)), M::kShr6), maxv);
     } else {  // finish(V(H_fx) >> 6); R1 = 1 mod 4, so the offset is sy
       static_assert(SY == 0 || SY == 1, "a 2-D phase needs sy at compile "
                                         "time");
-      float v[15];
+      A v[15];
       load_col<SY>(hc + (FX - 1) * L::HCOLS * L::HP + hcol * L::HP + rb, v);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
-        p[i] = clip_m(floor_m(filt<FY>(v, i, rnd2), sh2_scale), maxv);
+        p[i] = M::clip(M::shr(filt<FY>(v, i, rnd2), sh2), maxv);
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) d[i] = om[i] - p[i];
   }
 
   // a half-phase tile read from a P cache
-  __device__ __forceinline__ void cached(const float* pc, int col, int sy,
-                                         float (&d)[8]) const {
-    float p[8];
+  __device__ __forceinline__ void cached(const A* pc, int col, int sy,
+                                         A (&d)[8]) const {
+    A p[8];
     load_col(pc + col * L::PP + (sy ? L::PR1 : 0) + 8 * ty, WIDE ? 0 : sy, p);
 #pragma unroll
     for (int i = 0; i < 8; ++i) d[i] = om[i] - p[i];
@@ -401,7 +460,7 @@ struct RefineLane {
   // then on fx, and for the two-dimensional phases on sy
   template <int FY>
   __device__ __forceinline__ void dispatch_fx(int fx, int sy, int sx,
-                                              float (&d)[8]) const {
+                                              A (&d)[8]) const {
     if constexpr (FY == 0) {
       if (fx == 1)
         quarter<0, 1>(sy, sx, d);
@@ -423,7 +482,7 @@ struct RefineLane {
   }
 
   __device__ __forceinline__ void dispatch(int fy, int fx, int sy, int sx,
-                                           float (&d)[8]) const {
+                                           A (&d)[8]) const {
     switch (fy) {
       case 0: dispatch_fx<0>(fx, sy, sx, d); break;
       case 1: dispatch_fx<1>(fx, sy, sx, d); break;
@@ -435,22 +494,23 @@ struct RefineLane {
   // The lane's share of dsp::satd of its tile, given its column of
   // differences: half the sum of |coefficient| over one row of the
   // transform.
-  __device__ __forceinline__ float satd(float (&d)[8]) const {
+  __device__ __forceinline__ A satd(A (&d)[8]) const {
+    using V4 = typename M::V4;
 #pragma unroll
     for (int h = 1; h < 8; h <<= 1)
 #pragma unroll
       for (int k = 0; k < 8; ++k)
         if (!(k & h)) {
-          const float u = d[k], v = d[k + h];
+          const A u = d[k], v = d[k + h];
           d[k] = u + v;
           d[k + h] = u - v;
         }
     __syncwarp();  // the previous candidate's rows are read
-    float4* w = reinterpret_cast<float4*>(scr + j * 12);
-    w[0] = make_float4(d[0], d[1], d[2], d[3]);
-    w[1] = make_float4(d[4], d[5], d[6], d[7]);
+    V4* w = reinterpret_cast<V4*>(scr + j * 12);
+    w[0] = V4{d[0], d[1], d[2], d[3]};
+    w[1] = V4{d[4], d[5], d[6], d[7]};
     __syncwarp();
-    float e[8];
+    A e[8];
 #pragma unroll
     for (int k = 0; k < 8; ++k) e[k] = scr[k * 12 + j];
 #pragma unroll
@@ -458,24 +518,26 @@ struct RefineLane {
 #pragma unroll
       for (int k = 0; k < 8; ++k)
         if (!(k & h)) {
-          const float u = e[k], v = e[k + h];
+          const A u = e[k], v = e[k + h];
           e[k] = u + v;
           e[k + h] = u - v;
         }
-    float s = 0.f;
+    A s = 0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) s += fmaxf(fabsf(e[k]), fabsf(e[k + 4]));
+    for (int k = 0; k < 4; ++k) s += M::absmax(e[k], e[k + 4]);
     return s;
   }
 };
 
 // dsp::satd's (s + 2) >> 2 of each 8x8 tile (s twice the sum of its 8
 // lanes' shares), summed over the warp's four tiles; every lane gets it.
-__device__ __forceinline__ int warp_tiles(float s) {
+template <typename A>
+__device__ __forceinline__ int warp_tiles(A s) {
+  using M = RefineMath<A>;
   s += __shfl_xor_sync(0xffffffffu, s, 1);
   s += __shfl_xor_sync(0xffffffffu, s, 2);
   s += __shfl_xor_sync(0xffffffffu, s, 4);
-  int c = __float_as_int(floor_m(s + 1.f, 0.5f)) - __float_as_int(kMagic);
+  int c = M::value(M::shr(s + A(1), M::kShr1));
   c += __shfl_xor_sync(0xffffffffu, c, 8);
   c += __shfl_xor_sync(0xffffffffu, c, 16);
   return c;
@@ -483,7 +545,9 @@ __device__ __forceinline__ int warp_tiles(float s) {
 
 template <typename T, int SIZE, bool WIDE, bool HALF_ONLY>
 __global__ void __launch_bounds__(refine_threads<SIZE>())
-    refine_tables_kernel(RefineArgs a) {
+    refine_tables_kernel(RefineArgs<RefineArith<T>> a) {
+  using A = RefineArith<T>;
+  using M = RefineMath<A>;
   using L = RefineLayout<SIZE, WIDE>;
   constexpr int SB = refine_sb<SIZE>();
   extern __shared__ __align__(16) float smem[];
@@ -491,12 +555,12 @@ __global__ void __launch_bounds__(refine_threads<SIZE>())
   const int n = a.ny * a.nx;
   const int b = blockIdx.x * SB + sb;
   if (b >= n) return;  // a whole warp of a 16x16 thread block
-  float* base = smem + sb * L::WORDS;
-  float* win = base;
-  float* hc = base + L::O_H;
-  float* p20 = base + L::O_P20;
-  float* p22 = base + L::O_P22;
-  float* qs = base + L::O_QS;
+  A* base = reinterpret_cast<A*>(smem) + sb * L::WORDS;
+  A* win = base;
+  A* hc = base + L::O_H;
+  A* p20 = base + L::O_P20;
+  A* p22 = base + L::O_P22;
+  A* qs = base + L::O_QS;
   int* red = reinterpret_cast<int*>(base + L::O_RED);  // [WARPS][9 + 8]
   const int warp = lt >> 5;
 
@@ -514,7 +578,9 @@ __global__ void __launch_bounds__(refine_threads<SIZE>())
   const int tc1 = slice_start<SIZE>(base_c, w2);
 
   // 1. the window (without WIDE tr1 = tr0 + 1, tc1 = tc0 + 1, one block
-  // at (tr0, tc0)): a lane issues a batch of loads before it stores them
+  // at (tr0, tc0)): a lane issues a batch of loads before it stores them;
+  // an int32 sample reaches int arithmetic unchanged, so samples of 2^15
+  // and above keep their sign
   {
     constexpr int TOTAL = L::ROWS * L::WCOLS;
     constexpr int PER = (TOTAL + L::LANES - 1) / L::LANES;
@@ -523,7 +589,7 @@ __global__ void __launch_bounds__(refine_threads<SIZE>())
     const T* ref = static_cast<const T*>(a.ref) +
                    (WIDE ? 0 : static_cast<long long>(tr0) * rs + tc0);
     for (int k0 = lt; k0 < TOTAL; k0 += BATCH * L::LANES) {
-      float v[BATCH];
+      A v[BATCH];
 #pragma unroll
       for (int q = 0; q < BATCH; ++q) {
         const int k = k0 + q * L::LANES;
@@ -535,7 +601,7 @@ __global__ void __launch_bounds__(refine_threads<SIZE>())
           at = (wr < L::R1 ? tr0 + wr : tr1 + wr - L::R1) * rs +
                (wc < L::C1 ? tc0 + wc : tc1 + wc - L::C1);
         }
-        v[q] = live ? static_cast<float>(ref[at]) : 0.f;
+        v[q] = live ? static_cast<A>(ref[at]) : A(0);
       }
 #pragma unroll
       for (int q = 0; q < BATCH; ++q) {
@@ -545,7 +611,7 @@ __global__ void __launch_bounds__(refine_threads<SIZE>())
       }
     }
   }
-  RefineLane<SIZE, WIDE> ln;
+  RefineLane<A, SIZE, WIDE> ln;
   {
     const int tile = lt >> 3;
     ln.j = lt & 7;
@@ -555,15 +621,15 @@ __global__ void __launch_bounds__(refine_threads<SIZE>())
                     (by + 8 * ln.ty) * a.ostride + bx + 8 * ln.tx + ln.j;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
-      ln.om[i] = static_cast<float>(orig[i * a.ostride]) + kMagic;
+      ln.om[i] = static_cast<A>(orig[i * a.ostride]) + M::kOff;
     ln.scr = base + L::O_SCR + warp * L::SCR + (tile & 3) * L::TP;
   }
   ln.win = win;
   ln.hc = hc;
   ln.off_u = a.off_u;
-  ln.hr_scale = a.hr_scale;
+  ln.hr = a.hr;
   ln.rnd2 = a.rnd2;
-  ln.sh2_scale = a.sh2_scale;
+  ln.sh2 = a.sh2;
   ln.maxv = a.maxv;
   refine_sync<SIZE>();
 
@@ -575,40 +641,39 @@ __global__ void __launch_bounds__(refine_threads<SIZE>())
     for (int k = lt; k < L::ROWS * RUNS; k += L::LANES) {
       const int u = k / RUNS, c0 = k % RUNS * L::RL;
       if (WIDE && u >= L::SPAN && u < L::R1) continue;  // the gap rows
-      const float* s =
+      const A* s =
           win + u * L::WP + (c0 < L::HC1 ? c0 : L::C1 + c0 - L::HC1);
-      float w[L::RL + 7];
+      A w[L::RL + 7];
 #pragma unroll
       for (int t = 0; t < L::RL + 7; ++t) w[t] = s[t];
-      float* h = hc + c0 * L::HP + u;
+      A* h = hc + c0 * L::HP + u;
 #pragma unroll
       for (int i = 0; i < L::RL; ++i) {
-        h[i * L::HP] = floor_m(filt<1>(w, i, 0.f), a.s1_scale) - kMagic;
-        h[HS + i * L::HP] = floor_m(filt<2>(w, i, 0.f), a.s1_scale) - kMagic;
-        h[2 * HS + i * L::HP] =
-            floor_m(filt<3>(w, i, 0.f), a.s1_scale) - kMagic;
+        h[i * L::HP] = M::shr(filt<1>(w, i, A(0)), a.s1) - M::kOff;
+        h[HS + i * L::HP] = M::shr(filt<2>(w, i, A(0)), a.s1) - M::kOff;
+        h[2 * HS + i * L::HP] = M::shr(filt<3>(w, i, A(0)), a.s1) - M::kOff;
       }
     }
   }
   refine_sync<SIZE>();
 
   // 2b. P22 = finish(V2(H_2) >> 6) over HCOLS columns and P20 =
-  // finish(V2(window) >> s1) over the first SIZE, kept with the kMagic
+  // finish(V2(window) >> s1) over the first SIZE, kept with the kOff
   // offset: a lane takes RL rows of a column of both
   {
     constexpr int RUNS = L::PROWS / L::RL;
-    const float* h2c = hc + L::HCOLS * L::HP;
+    const A* h2c = hc + L::HCOLS * L::HP;
     for (int k = lt; k < L::HCOLS * RUNS; k += L::LANES) {
       const int c = k / RUNS, u0 = k % RUNS * L::RL;
       const int sr = u0 < L::PR1 ? u0 : L::R1 + u0 - L::PR1;
-      float v[L::RL + 7];
-      const float* s = h2c + c * L::HP + sr;
+      A v[L::RL + 7];
+      const A* s = h2c + c * L::HP + sr;
 #pragma unroll
       for (int t = 0; t < L::RL + 7; ++t) v[t] = s[t];
-      float* out = p22 + c * L::PP + u0;
+      A* out = p22 + c * L::PP + u0;
 #pragma unroll
       for (int i = 0; i < L::RL; ++i)
-        out[i] = clip_m(floor_m(filt<2>(v, i, a.rnd2), a.sh2_scale), a.maxv);
+        out[i] = M::clip(M::shr(filt<2>(v, i, a.rnd2), a.sh2), a.maxv);
       if (c < SIZE) {
         s = win + sr * L::WP + L::C1 + 3 + c;
 #pragma unroll
@@ -616,7 +681,7 @@ __global__ void __launch_bounds__(refine_threads<SIZE>())
         out = p20 + c * L::PP + u0;
 #pragma unroll
         for (int i = 0; i < L::RL; ++i)
-          out[i] = clip_m(floor_m(filt<2>(v, i, 32.f), 1.f / 64), a.maxv);
+          out[i] = M::clip(M::shr(filt<2>(v, i, A(32)), M::kShr6), a.maxv);
       }
     }
   }
@@ -625,12 +690,12 @@ __global__ void __launch_bounds__(refine_threads<SIZE>())
   // 3. half stage: the 9 candidates (dy outer, dx inner) as reads, with
   // no barrier between them; their costs gathered after
   {
-    float hs[9];
+    A hs[9];
     const int col = 8 * ln.tx + ln.j;
 #pragma unroll
     for (int k = 0; k < 9; ++k) {
       const int sy = k / 3 != 0, sx = k % 3 != 0;  // dy, dx = -2: shift -1
-      float d[8];
+      A d[8];
       if (k == 4)
         ln.template quarter<0, 0>(sy, sx, d);
       else if (k == 3 || k == 5)  // P02 = finish(H_2)
@@ -680,7 +745,7 @@ __global__ void __launch_bounds__(refine_threads<SIZE>())
       const int kk = k < 4 ? k : k + 1;
       const int qy = cy + kk / 3 - 1, qx = cx + kk % 3 - 1;
       const int sy = (qy >> 2) + 1, sx = (qx >> 2) + 1;
-      float d[8];
+      A d[8];
       ln.dispatch(qy & 3, qx & 3, sy, sx, d);
       qs[k * L::LANES + lt] = ln.satd(d);
     }
@@ -709,54 +774,71 @@ __global__ void __launch_bounds__(refine_threads<SIZE>())
   }
 }
 
+// The dynamic shared memory a thread block asks for is set on every launch
+// (cudaFuncSetAttribute holds for the current device only).
 template <typename T, int SIZE, bool WIDE, bool HALF_ONLY>
-cudaError_t launch_refine_one(const RefineArgs& a, int n,
+cudaError_t launch_refine_one(const RefineArgs<RefineArith<T>>& a, int n,
                               cudaStream_t stream) {
   using L = RefineLayout<SIZE, WIDE>;
   constexpr int SB = refine_sb<SIZE>();
   constexpr size_t bytes = 4u * SB * L::WORDS;
   auto kernel = refine_tables_kernel<T, SIZE, WIDE, HALF_ONLY>;
-  static const cudaError_t attr = allow_smem(kernel, bytes);
+  const cudaError_t attr = allow_smem(kernel, bytes);
   if (attr != cudaSuccess) return attr;
   kernel<<<(n + SB - 1) / SB, SB * L::LANES, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
+// One launch on planes of T at `depth` bits; `wide` picks the layout.
+template <typename T, bool HALF_ONLY>
+cudaError_t launch_refine(const void* orig, long long ostride,
+                          const void* ref, long long rstride, int ref_h,
+                          int ref_w, const int* gidx, int size, int r, int ny,
+                          int nx, int pad, int depth, bool wide, int* off,
+                          int* half, cudaStream_t stream) {
+  using A = RefineArith<T>;
+  using M = RefineMath<A>;
+  const int hr = depth > 12 ? 2 : 14 - depth;
+  const RefineArgs<A> a{orig, ostride, ref, rstride, ref_h, ref_w, gidx,
+                        r, ny, nx, pad,
+                        M::shift(6 - hr), static_cast<A>(1 << (hr - 1)),
+                        M::shift(hr), static_cast<A>(1 << (hr + 5)),
+                        M::shift(hr + 6), static_cast<A>((1 << depth) - 1),
+                        off, half};
+  const int n = ny * nx;
+  if (size == 32)
+    return wide ? launch_refine_one<T, 32, true, HALF_ONLY>(a, n, stream)
+                : launch_refine_one<T, 32, false, HALF_ONLY>(a, n, stream);
+  return wide ? launch_refine_one<T, 16, true, HALF_ONLY>(a, n, stream)
+              : launch_refine_one<T, 16, false, HALF_ONLY>(a, n, stream);
+}
+
+// uint8 planes at 8 bits, int16 at 9-14 (both float32 arithmetic), int32
+// at 15-16 (int32 arithmetic); any other pairing is refused
 template <bool HALF_ONLY>
 int refine_entry(const void* orig, long long ostride, const void* ref,
                  long long rstride, int ref_h, int ref_w, int elem_bytes,
                  const int* gidx, int size, int r, int ny, int nx, int pad,
                  int depth, int* off, int* half, cudaStream_t stream) {
-  const int n = ny * nx;
-  if (n <= 0 || (elem_bytes != 1 && elem_bytes != 2) ||
-      (size != 16 && size != 32) || depth < 8 || depth > 14 ||
+  const bool paired = (elem_bytes == 1 && depth == 8) ||
+                      (elem_bytes == 2 && depth >= 8 && depth <= 14) ||
+                      (elem_bytes == 4 && depth >= 15 && depth <= 16);
+  if (ny * nx <= 0 || !paired || (size != 16 && size != 32) ||
       ref_h < size + 8 || ref_w < size + 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int hr = depth > 12 ? 2 : 14 - depth;
-  const RefineArgs a{orig, ostride, ref, rstride, ref_h, ref_w, gidx,
-                     r, ny, nx, pad,
-                     std::ldexp(1.f, hr - 6),
-                     static_cast<float>(1 << (hr - 1)),
-                     std::ldexp(1.f, -hr),
-                     static_cast<float>(1 << (hr + 5)),
-                     std::ldexp(1.f, -(hr + 6)),
-                     static_cast<float>((1 << depth) - 1), off, half};
   // every tile start inside the phase planes, for every MV within +-r:
   // the window of shifts -1 and 0 is one (size + 8)^2 block
   const bool wide = pad - r - 4 < 0 ||
                     pad + (ny - 1) * size + r - 3 > ref_h - 7 - size ||
                     pad + (nx - 1) * size + r - 3 > ref_w - 7 - size;
-#define HEVC_REFINE_CASE(T, S)                                            \
-  return static_cast<int>(                                                \
-      wide ? launch_refine_one<T, S, true, HALF_ONLY>(a, n, stream)       \
-           : launch_refine_one<T, S, false, HALF_ONLY>(a, n, stream))
-  if (elem_bytes == 1) {
-    if (size == 32) HEVC_REFINE_CASE(uint8_t, 32);
-    HEVC_REFINE_CASE(uint8_t, 16);
-  }
-  if (size == 32) HEVC_REFINE_CASE(int16_t, 32);
-  HEVC_REFINE_CASE(int16_t, 16);
-#undef HEVC_REFINE_CASE
+#define HEVC_REFINE_LAUNCH(T)                                             \
+  return static_cast<int>(launch_refine<T, HALF_ONLY>(                    \
+      orig, ostride, ref, rstride, ref_h, ref_w, gidx, size, r, ny, nx, pad, \
+      depth, wide, off, half, stream))
+  if (elem_bytes == 1) HEVC_REFINE_LAUNCH(uint8_t);
+  if (elem_bytes == 2) HEVC_REFINE_LAUNCH(int16_t);
+  HEVC_REFINE_LAUNCH(int32_t);
+#undef HEVC_REFINE_LAUNCH
 }
 
 }  // namespace

@@ -104,10 +104,9 @@ class NativeFrameEncoder:
         self.search_range = search_range
         self.cu_depth_target = cu_depth_target
         self.is_b = is_b
-        if mesh is not None:
-            raise NotImplementedError(
-                "the multi-device (mesh) search is not ported to "
-                "hevc_tpu_torch yet")
+        # multi-device: a parallel.Mesh splits every grid's block rows
+        # over its devices — the same grids, so the same stream
+        self.mesh = mesh
         self.device = runtime.resolve_device(device)
 
         def norm(refs):
@@ -238,18 +237,21 @@ class NativeFrameEncoder:
                         uniq_wp.append(t)
                 l0s = [slot[id(d)] for d in self.ref_dev[:n0]]
                 l1s = [slot[id(d)] for d in self.ref1_dev[:n1]]
-                # default OFF — see encoder/top.py _rf()
-                want_rf = _os.environ.get("HEVC_TPU_ME_REFINE", "0") == "1"
+                # default OFF — see encoder/top.py _rf(); none under a
+                # mesh, as in the reference
+                want_rf = (self.mesh is None and _os.environ.get(
+                    "HEVC_TPU_ME_REFINE", "0") == "1")
                 if want16:
                     out = me_ssd.me_grids_multi2(
                         orig_dev, uniq, size, 16, self.search_range,
-                        self.lam_fp, pad=PAD, depth=depth, wp=uniq_wp,
-                        refine=want_rf)
+                        self.lam_fp, pad=PAD, depth=depth, mesh=self.mesh,
+                        wp=uniq_wp, refine=want_rf)
                 else:
                     out = [(gx, gy, None, None) for gx, gy in
                            me_ssd.me_grids_multi(
                                orig_dev, uniq, size, self.search_range,
-                               self.lam_fp, pad=PAD, depth=depth)]
+                               self.lam_fp, pad=PAD, depth=depth,
+                               mesh=self.mesh)]
                 me_x = [out[i][0] for i in l0s]
                 me_y = [out[i][1] for i in l0s]
                 if want16:

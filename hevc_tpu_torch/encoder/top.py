@@ -92,7 +92,7 @@ def hm_pic_lambda(qp: float, gop_size: int, gop_poc: int, qp_factor: float,
 
 class EncoderTop:
     def __init__(self, cfg: EncoderConfig, mesh=None,
-                 mesh_axis: Optional[str] = None, device="cuda"):
+                 mesh_axis: Optional[str] = None, device=None):
         # the supported-surface contract (io.cfg.validate) holds for every
         # entry point, not just the CLI: library users / bench / parallel
         # get the same xConfirmPara rejects (reference TAppEncCfg.cpp:1691
@@ -100,12 +100,20 @@ class EncoderTop:
         from ..io.cfg import validate
         validate(cfg, warn=lambda m: None)
         self.cfg = cfg
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device encoding is not ported to hevc_tpu_torch yet")
         # the device every search and prescreen runs on ("cuda" by
-        # default; the tests pass "cpu")
-        self.device = runtime.resolve_device(device)
+        # default; the tests pass "cpu"). Under a mesh (a parallel.Mesh)
+        # it is the mesh's first device, and every motion search splits
+        # its block rows over the mesh: the same grids, the same stream,
+        # every GOP shape
+        if mesh is None:
+            self.device = runtime.resolve_device(
+                "cuda" if device is None else device)
+        else:
+            from ..parallel import _same_device
+            self.device = mesh.devices[0]
+            if device is not None and not _same_device(device, self.device):
+                raise ValueError(f"EncoderTop: device {device!r} is not "
+                                 f"the mesh's first device {self.device}")
         self.mesh = mesh
         self.mesh_axis = mesh_axis
         # conformance window (reference TAppEncCfg "ConformanceMode" /
@@ -554,15 +562,17 @@ class EncoderTop:
         if not cfg.gop_entries:
             nmax = 4  # default low-delay ladder
         npad = 1
+        # the tables only where the encode computes them (not under a mesh)
+        rf = self.mesh is None and _rf()
         while True:
             refs = [refp] * npad
             if want16:
                 me_ssd.me_grids_multi2(
                     orig, refs, size, 16, r, self.qp_lam_fp, pad=PAD,
-                    depth=depth, refine=_rf())
+                    depth=depth, mesh=self.mesh, refine=rf)
             else:
                 me_ssd.me_grids_multi(orig, refs, size, r, self.qp_lam_fp,
-                                      pad=PAD, depth=depth)
+                                      pad=PAD, depth=depth, mesh=self.mesh)
             if npad >= nmax:
                 break
             npad *= 2

@@ -592,6 +592,25 @@ def _grid_ptr_array(grids):
     return arr
 
 
+# Zeroed rows after the engine's luma source plane. dsp::satd_rect screens a
+# 12-sample side of an asymmetric (AMP) prediction unit of a 16x16 CU in
+# 8x8 tiles, so it reads up to 4 samples past the unit's right and bottom
+# edges (hevc_tpu's engine does the same): inside the picture those are
+# neighbouring samples, but at its bottom-right corner they lie past the
+# end of the plane, and without the slack they were whatever memory
+# followed it, a different stream from run to run.
+_SLACK_ROWS = 4
+
+
+def _with_slack(plane: np.ndarray) -> np.ndarray:
+    """A contiguous copy of `plane` followed by _SLACK_ROWS zeroed rows
+    in the same buffer (the returned view holds it alive)."""
+    h, w = plane.shape
+    buf = np.zeros((h + _SLACK_ROWS, w), plane.dtype)
+    buf[:h] = plane
+    return buf[:h]
+
+
 class NativeCtuEngine:
     """Native per-CTU mode-decision + reconstruction engine (C++ twin of
     the Python encoder loops; entropy/native/engine.cpp). ref0/ref1 accept
@@ -605,6 +624,7 @@ class NativeCtuEngine:
                  me1_mvx=None, me1_mvy=None):
         pel32 = orig[0].dtype == np.int32
         self._lib = get_lib(pel32)
+        orig = [_with_slack(orig[0])] + list(orig[1:])
         r0 = _as_ref_list(ref0)
         r1 = _as_ref_list(ref1)
         me_mvx = _as_grid_list(me_mvx, max(1, len(r0)))

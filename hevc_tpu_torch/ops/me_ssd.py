@@ -74,10 +74,6 @@ def _bits0_dev(r: int, device: torch.device) -> torch.Tensor:
     return runtime.upload(bits0_table(r), device)
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to hevc_tpu_torch yet")
-
-
 def _pad_edge_dev(plane: torch.Tensor, pad: int) -> torch.Tensor:
     """Edge extension by `pad` samples on every side (jnp.pad mode="edge")
     as one replicate pad: it only copies samples, so it is exact for every
@@ -367,7 +363,8 @@ def _argmin_two_pass_plain(ssd, bits0, lam_q8, *, r, ny, nx, local_only):
                        idx_loc).to(torch.int32)
 
 
-def _argmin_two_pass(ssd, bits0, lam_q8, *, r, ny, nx, size):
+def _argmin_two_pass(ssd, bits0, lam_q8, *, r, ny, nx, size,
+                     local_only=None):
     """Robust two-pass argmin -> [ny*nx] int32 flat (dy, dx) indices.
 
     Pass 1 (regional): argmin of the cost tables summed over a 3x3 block
@@ -375,8 +372,11 @@ def _argmin_two_pass(ssd, bits0, lam_q8, *, r, ny, nx, size):
     sequential TZ predictor chain plays, TEncSearch::xTZSearch). Pass 2
     (local): per-block argmin within +-LOCAL_W of the regional MV with the
     predictor-centred rate term; the block's own global minimum replaces
-    it only when clearly (>12.5%) cheaper."""
-    local_only = _local_only(size, r, ny, nx)
+    it only when clearly (>12.5%) cheaper. `local_only` defaults to
+    _local_only of this table's shape; a shard of a frame passes the
+    whole frame's."""
+    if local_only is None:
+        local_only = _local_only(size, r, ny, nx)
     if ssd.device.type == "cpu":
         return _argmin_two_pass_plain(ssd, bits0, lam_q8, r=r, ny=ny, nx=nx,
                                       local_only=local_only)
@@ -665,18 +665,20 @@ def refine_tables(orig, refp, gidx, *, size, r, ny, nx, pad, depth):
     argmin indices of me_idx_frame) and the minimum of its 3x3 half-pel
     SATDs. orig [H, W] and refp [H+2pad, W+2pad] as me_idx_frame takes
     them. On the card one launch of the refine_tables kernel (sizes 16 and
-    32, 8-14 bits)."""
+    32): uint8 planes at 8 bits and int16 ones at 9-14 bits take its
+    float32 instances, int32 planes at 15-16 bits its int32 instance
+    (me_dtype); any other pairing of dtype and depth raises ValueError."""
     if refp.device.type == "cpu":
         return _refine_direct_plain(orig, _build_phases_plain(refp, depth),
                                     gidx, size=size, r=r, ny=ny, nx=nx,
                                     pad=pad)
-    if depth > 14:
-        raise NotImplementedError("refine_tables: 15-16-bit planes (int32) "
-                                  "have no kernel")
     if size not in (16, 32):
         raise ValueError(f"refine_tables: block size {size} is not 16 or "
                          "32")
-    dt = torch.uint8 if depth <= 8 else torch.int16
+    if not 8 <= depth <= 16:
+        raise ValueError(f"refine_tables: {depth}-bit samples (8-16 bits)")
+    dt = (torch.uint8 if depth == 8 else
+          torch.int16 if depth <= 14 else torch.int32)
     runtime.require(orig, dt, "refine_tables orig", contiguous=False)
     runtime.require(refp, dt, "refine_tables refp", contiguous=False)
     runtime.require(gidx, torch.int32, "refine_tables gidx")
@@ -699,12 +701,13 @@ def refine_tables(orig, refp, gidx, *, size, r, ny, nx, pad, depth):
 
 
 def me_idx_frame(orig, ref_padded, bits0, lam_q8, *, size, r, ny, nx, pad,
-                 depth=8, wpv=None):
+                 depth=8, wpv=None, local_only=None):
     """One frame's two-pass SSD argmin indices [ny*nx] int32 for one
     reference: orig [H, W] and ref_padded [H+2pad, W+2pad] tensors, uint8
     at 8 bits, int16 at 9-14 bits, int32 at 15-16 bits (me_dtype). `wpv`,
     when given, is the (w, o, denom) weighted-prediction triple applied to
-    the reference before the search (wp_apply)."""
+    the reference before the search (wp_apply). `local_only`: as
+    _argmin_two_pass takes it."""
     if wpv is not None:
         ref_padded = wp_apply(ref_padded, wpv, depth)
     aw = 2 * r + size
@@ -717,18 +720,13 @@ def me_idx_frame(orig, ref_padded, bits0, lam_q8, *, size, r, ny, nx, pad,
     else:
         ssd = _ssd_table(roi, orig, size=size, r=r, ny=ny, nx=nx)
     return _argmin_two_pass(ssd, bits0, lam_q8, r=r, ny=ny, nx=nx,
-                            size=size)
+                            size=size, local_only=local_only)
 
 
 def _grid_dims(h: int, w: int, size: int):
     ny = (h - size) // size + 1 if h >= size else 0
     nx = (w - size) // size + 1 if w >= size else 0
     return ny, nx
-
-
-def _check_options(axis_name) -> None:
-    if axis_name is not None:
-        raise _not_ported("the multi-device (mesh) search")
 
 
 def _grids(idx: np.ndarray, r: int, ny: int, nx: int):
@@ -740,22 +738,23 @@ def _grids(idx: np.ndarray, r: int, ny: int, nx: int):
 
 def me_grids_multi2(orig_dev, ref_devs, size: int, size2: int, r: int,
                     lam_fp: int, *, pad: int, depth: int = 8,
-                    axis_name=None, wp=None, refine: bool = False):
+                    mesh=None, wp=None, refine: bool = False):
     """MV grids at the CU-grid size AND its half size for several
     references. Returns [(gx, gy, gx2, gy2)] per reference; any grid whose
     dimension is empty is (None, None). wp: per-ref (w, o, denom) luma
     weighted-prediction triples (or None entries): the search then runs
     against the weighted reference. refine: also the fractional-refine
-    tables, as a fifth entry {"off32", "half32", "off16", "half16"}."""
+    tables, as a fifth entry {"off32", "half32", "off16", "half16"}.
+    mesh: a parallel.Mesh whose devices split every grid's block rows
+    (parallel.me_idx_blocks_async); the grids are the unsharded ones."""
     return me_grids_multi2_async(orig_dev, ref_devs, size, size2, r,
-                                 lam_fp, pad=pad, depth=depth,
-                                 axis_name=axis_name, wp=wp,
-                                 refine=refine)()
+                                 lam_fp, pad=pad, depth=depth, mesh=mesh,
+                                 wp=wp, refine=refine)()
 
 
 def me_grids_multi2_async(orig_dev, ref_devs, size: int, size2: int,
                           r: int, lam_fp: int, *, pad: int,
-                          depth: int = 8, axis_name=None, wp=None,
+                          depth: int = 8, mesh=None, wp=None,
                           refine: bool = False):
     """Launch the two-grid multi-reference search and return a zero-arg
     collector. Kernel launches are asynchronous, and the packed indices
@@ -776,8 +775,9 @@ def me_grids_multi2_async(orig_dev, ref_devs, size: int, size2: int,
     tables are not computed: the host's WP-aware MC differs from plane
     weighting. When only one of the two grids fits the picture,
     the search runs unweighted and without tables, as the reference's
-    single-grid fallback does."""
-    _check_options(axis_name)
+    single-grid fallback does. Under a mesh each device searches its
+    shard of block rows (one readback a device) and the tables are not
+    computed, as the reference computes none under a mesh."""
     h, w = orig_dev.shape[:2]
     r2 = min(r, 16)
     ny, nx = _grid_dims(h, w, size)
@@ -785,15 +785,14 @@ def me_grids_multi2_async(orig_dev, ref_devs, size: int, size2: int,
     if ny2 == 0 or nx2 == 0:
         out = [(gx, gy, None, None) for gx, gy in
                me_grids_multi(orig_dev, ref_devs, size, r, lam_fp,
-                              pad=pad, depth=depth)]
+                              pad=pad, depth=depth, mesh=mesh)]
         return lambda: out
     if ny == 0 or nx == 0:
         # picture smaller than the large grid: only the small grid runs
         out = [(None, None, gx, gy) for gx, gy in
                me_grids_multi(orig_dev, ref_devs, size2, r2, lam_fp,
-                              pad=pad, depth=depth)]
+                              pad=pad, depth=depth, mesh=mesh)]
         return lambda: out
-    dev = orig_dev.device
     lam_q8 = lam_q8_of(lam_fp)
     use_wp = wp is not None and any(t is not None for t in wp)
     refs = list(ref_devs)
@@ -803,28 +802,22 @@ def me_grids_multi2_async(orig_dev, ref_devs, size: int, size2: int,
         refs = [t for i in range(0, len(refs), WP_MAX)
                 for t in wp_apply_multi(refs[i:i + WP_MAX],
                                         wpvs[i:i + WP_MAX], depth)]
-    parts = []
-    for refp in refs:
-        i1 = me_idx_frame(orig_dev, refp, _bits0_dev(r, dev), lam_q8,
-                          size=size, r=r, ny=ny, nx=nx, pad=pad, depth=depth)
-        i2 = me_idx_frame(orig_dev, refp, _bits0_dev(r2, dev), lam_q8,
-                          size=size2, r=r2, ny=ny2, nx=nx2, pad=pad,
-                          depth=depth)
-        part = [i1, i2]
-        if refine:
-            rk = dict(pad=pad, depth=depth)
-            part += refine_tables(orig_dev, refp, i1, size=size, r=r, ny=ny,
-                                  nx=nx, **rk)
-            part += refine_tables(orig_dev, refp, i2, size=size2, r=r2,
-                                  ny=ny2, nx=nx2, **rk)
-        parts.append(torch.cat(part))
-    readback = runtime.Readback(torch.stack(parts))
     n1, n2 = ny * nx, ny2 * nx2
+    if mesh is not None:
+        from ..parallel import me_idx_blocks_async
+        refine = False
+        result = me_idx_blocks_async(
+            orig_dev, refs, [(size, r, ny, nx), (size2, r2, ny2, nx2)],
+            lam_q8, mesh=mesh, pad=pad, depth=depth)
+    else:
+        result = _me_idx_multi2_dev(orig_dev, refs, size, size2, r, r2,
+                                    (ny, nx, ny2, nx2), lam_q8, pad=pad,
+                                    depth=depth, refine=refine).result
 
     def collect():
-        a = readback.result()
+        a = result()
         out = []
-        for k in range(len(parts)):
+        for k in range(len(refs)):
             grids = (_grids(a[k, :n1], r, ny, nx)
                      + _grids(a[k, n1:n1 + n2], r2, ny2, nx2))
             if refine:
@@ -840,17 +833,47 @@ def me_grids_multi2_async(orig_dev, ref_devs, size: int, size2: int,
     return collect
 
 
+def _me_idx_multi2_dev(orig_dev, refs, size, size2, r, r2, dims, lam_q8, *,
+                       pad, depth, refine):
+    """Both grids' indices (and with `refine` their tables) of every
+    reference on orig_dev's device, [len(refs), n1 + n2 (+ 2 n1 + 2 n2)]
+    int32, its copy to the host started (a runtime.Readback)."""
+    ny, nx, ny2, nx2 = dims
+    dev = orig_dev.device
+    parts = []
+    for refp in refs:
+        i1 = me_idx_frame(orig_dev, refp, _bits0_dev(r, dev), lam_q8,
+                          size=size, r=r, ny=ny, nx=nx, pad=pad, depth=depth)
+        i2 = me_idx_frame(orig_dev, refp, _bits0_dev(r2, dev), lam_q8,
+                          size=size2, r=r2, ny=ny2, nx=nx2, pad=pad,
+                          depth=depth)
+        part = [i1, i2]
+        if refine:
+            rk = dict(pad=pad, depth=depth)
+            part += refine_tables(orig_dev, refp, i1, size=size, r=r, ny=ny,
+                                  nx=nx, **rk)
+            part += refine_tables(orig_dev, refp, i2, size=size2, r=r2,
+                                  ny=ny2, nx=nx2, **rk)
+        parts.append(torch.cat(part))
+    return runtime.Readback(torch.stack(parts))
+
+
 def me_grids_multi(orig_dev, ref_devs, size: int, r: int, lam_fp: int, *,
-                   pad: int, depth: int = 8, axis_name=None):
+                   pad: int, depth: int = 8, mesh=None):
     """(gx, gy) MV grids for several references (the reference searches
-    each refIdx separately, TEncSearch.cpp:3027)."""
-    _check_options(axis_name)
+    each refIdx separately, TEncSearch.cpp:3027); under a mesh each device
+    searches its shard of block rows."""
     h, w = orig_dev.shape[:2]
     ny, nx = _grid_dims(h, w, size)
     if ny == 0 or nx == 0:
         return [(None, None)] * len(ref_devs)
     dev = orig_dev.device
     lam_q8 = lam_q8_of(lam_fp)
+    if mesh is not None:
+        from ..parallel import me_idx_blocks_async
+        a = me_idx_blocks_async(orig_dev, list(ref_devs), [(size, r, ny, nx)],
+                                lam_q8, mesh=mesh, pad=pad, depth=depth)()
+        return [_grids(a[k], r, ny, nx) for k in range(len(ref_devs))]
     idx = torch.stack([
         me_idx_frame(orig_dev, refp, _bits0_dev(r, dev), lam_q8, size=size,
                      r=r, ny=ny, nx=nx, pad=pad, depth=depth)

@@ -1,18 +1,64 @@
-"""Quantization / dequantization numpy twins for the host encoders.
+"""Quantization / dequantization: numpy twins and device versions.
 
-Counterpart of the numpy oracles of hevc_tpu/ops/quant.py (reference
-TComTrQuant.cpp xQuant:1126 with HM's rounding-offset scheme, 171/256
-intra and 85/256 inter, and xDeQuant:1314, spec 8.6.3). The device
-versions are not part of this package yet.
+Counterpart of hevc_tpu/ops/quant.py (reference TComTrQuant.cpp
+xQuant:1126 with HM's rounding-offset scheme, 171/256 intra and 85/256
+inter, and xDeQuant:1314, spec 8.6.3 with the flat scaling matrix). The
+numpy twins serve the host encoders; the device versions (`quantize`,
+`dequantize`, elementwise int32 on a torch device, as the reference's)
+only the tests call.
+
+  transformShift = 15 - bitDepth - log2N
+  forward: level = sign * ((|c| * quantScale[qp%6] + offset) >> qBits),
+           qBits = 14 + qp//6 + transformShift
+  dequant: c = clip16(((level * invQuantScale[qp%6] * 16) << (qp//6)
+                       + (1 << (bdShift-1))) >> bdShift),
+           bdShift = bitDepth + log2N - 5
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from .. import runtime
 from ..core import tables
 
 ENTROPY_CODING_MIN = -32768
 ENTROPY_CODING_MAX = 32767
+
+
+def quantize(coeffs, *, size: int, qp: int, bit_depth: int = 8,
+             is_intra: bool = True, device="cuda") -> torch.Tensor:
+    """Levels int32 of coefficients [...] (array or tensor) on `device`.
+    |c| <= 32767 and scale <= 26214, so |c| * scale + offset < 2^31: the
+    int32 arithmetic of the reference is exact."""
+    qp = qp + 6 * (bit_depth - 8)   # Qp' incl. QpBdOffset (spec 8.6.1)
+    log2n = tables.log2(size)
+    qbits = 14 + qp // 6 + 15 - bit_depth - log2n
+    scale = int(tables.QUANT_SCALES[qp % 6])
+    offset = (171 if is_intra else 85) << (qbits - 9)
+    c = torch.as_tensor(coeffs).to(runtime.resolve_device(device),
+                                   torch.int32)
+    level = ((c.abs() * scale + offset) >> qbits).clamp(0,
+                                                        ENTROPY_CODING_MAX)
+    return torch.where(c < 0, -level, level)
+
+
+def dequantize(levels, *, size: int, qp: int, bit_depth: int = 8,
+               device="cuda") -> torch.Tensor:
+    """Coefficients int32 of levels [...] on `device`. As in the
+    reference, the spec's (level * 16 * scale) << (qp // 6) is folded
+    into one shift, so that the products stay below 2^22 (int32)."""
+    qp = qp + 6 * (bit_depth - 8)   # Qp' incl. QpBdOffset (spec 8.6.1)
+    bd_shift = bit_depth + tables.log2(size) - 5
+    scale = int(tables.INV_QUANT_SCALES[qp % 6])
+    rshift = bd_shift - 4 - qp // 6
+    c = torch.as_tensor(levels).to(runtime.resolve_device(device),
+                                   torch.int32) * scale
+    if rshift > 0:
+        c = (c + (1 << (rshift - 1))) >> rshift
+    else:
+        c = c << -rshift
+    return c.clamp(ENTROPY_CODING_MIN, ENTROPY_CODING_MAX)
 
 
 def quantize_np(coeffs: np.ndarray, size: int, qp: int, bit_depth: int = 8,

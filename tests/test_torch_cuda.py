@@ -628,7 +628,7 @@ def _refine_planes(h, w, depth, seed):
     a = np.linspace(0, 1, w)[None]
     ref = a * t[6:6 + h, 5:5 + w] + (1 - a) * t[7:7 + h, 6:6 + w]
     ref += rng.integers(-2, 3, (h, w)) * (top >> 8)
-    dt = np.uint8 if depth == 8 else np.int16
+    dt = np.uint8 if depth == 8 else np.int16 if depth <= 14 else np.int32
     refp = np.pad(np.clip(np.rint(ref), 0, top - 1), PAD, mode="edge")
     return np.rint(t[8:8 + h, 8:8 + w]).astype(dt), refp.astype(dt)
 
@@ -761,9 +761,10 @@ def test_refine_and_wp_reject_bad_arguments(dev):
     from hevc_tpu_torch.ops import me_ssd
     plane = torch.zeros((120, 140), dtype=torch.int32, device=dev)
     g = torch.zeros(4, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError):
-        me_ssd.refine_tables(plane, plane, g, size=16, r=4, ny=2, nx=2,
-                             pad=PAD, depth=16)
+    for depth in (14, 17):   # int32 planes carry 15-16-bit samples only
+        with pytest.raises(ValueError):
+            me_ssd.refine_tables(plane, plane, g, size=16, r=4, ny=2, nx=2,
+                                 pad=PAD, depth=depth)
     with pytest.raises(ValueError):
         me_ssd.wp_apply(plane, (1, 0, 0), 14)   # a 14-bit plane is int16
     u8 = torch.zeros((200, 200), dtype=torch.uint8, device=dev)
@@ -1003,3 +1004,182 @@ def test_16bit_encode_on_card_matches_cpu(dev, cfg_name, n):
     key = "intra_screen" if "intra" in cfg_name else "ssd_table_deep"
     assert runtime.launches[key] > 0
     assert on_card == run("cpu")
+
+
+# ---------------------------------------------------------------------
+# the int32 instance of refine_tables (15-16 bits), the mesh search on one
+# card, and the test-only device twins
+# ---------------------------------------------------------------------
+def _refine32_case(kind, h, w, depth, seed):
+    """orig and padded reference int32 planes at 15 or 16 bits: the
+    refine test's blended texture, or the same with 16x16 patches of 0,
+    2^(depth-1) and 2^depth - 1 in both (at 16 bits, samples of 2^15 and
+    above have the int16 sign bit set)."""
+    orig, refp = _refine_planes(h, w, depth, seed)
+    if kind == "extremes":
+        top = (1 << depth) - 1
+        for k, p in enumerate((orig, refp[PAD:PAD + h, PAD:PAD + w])):
+            for i, y0 in enumerate(range(0, h - 16, 24)):
+                for j, x0 in enumerate(range(0, w - 16, 24)):
+                    p[y0:y0 + 16, x0:x0 + 16] = (0, 1 << (depth - 1),
+                                                 top)[(i + j + k) % 3]
+        refp = np.pad(refp[PAD:PAD + h, PAD:PAD + w], PAD, mode="edge")
+    return orig, refp
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("kind", ["texture", "extremes"])
+@pytest.mark.parametrize("depth", [15, 16])
+@pytest.mark.parametrize("size,r,h,w", [(32, 8, 96, 160), (16, 16, 96, 160),
+                                        (32, 64, 200, 264),
+                                        (32, 78, 96, 160), (16, 78, 96, 160)])
+@pytest.mark.parametrize("mvs", ["random", "edges"])
+def test_refine_tables_int32_matches_plain(dev, size, r, h, w, depth, kind,
+                                           strided, mvs):
+    """The int32 instance (int32 planes at 15 and 16 bits) against the
+    plain version: MVs at random or on the window's corners and edges, r =
+    78 through the WIDE layout, planes aligned or views 4 bytes past a
+    16-byte boundary."""
+    from hevc_tpu_torch import runtime
+    from hevc_tpu_torch.ops import me_ssd
+    orig, refp = _refine32_case(kind, h, w, depth, seed=size + r + depth)
+    ny, nx, nyx = h // size, w // size, 2 * r + 1
+    rng = np.random.default_rng(r + depth)
+    if mvs == "random":
+        gidx = rng.integers(0, nyx * nyx, ny * nx)
+    else:
+        ends = [(dy + r) * nyx + dx + r for dy in (-r, 0, r)
+                for dx in (-r, 0, r)]
+        gidx = np.array([ends[b % 9] for b in range(ny * nx)])
+    o, rp = _to_card(dev, orig, strided), _to_card(dev, refp, strided)
+    g = torch.from_numpy(gidx.astype(np.int32)).to(dev)
+    kw = dict(size=size, r=r, ny=ny, nx=nx, pad=PAD)
+    before = runtime.launches["refine_tables"]
+    off, half = me_ssd.refine_tables(o, rp, g, depth=depth, **kw)
+    assert runtime.launches["refine_tables"] == before + 1
+    exp = me_ssd._refine_direct_plain(
+        o, me_ssd._build_phases_plain(rp, depth), g, **kw)
+    _eq(off, exp[0])
+    _eq(half, exp[1])
+
+
+@pytest.mark.parametrize("depth", [8, 10, 16])
+def test_mesh_two_shards_on_one_card(dev, depth):
+    """A mesh of two shards on the one card (Mesh([cuda, cuda])) and one
+    of five (more shards than some grids have block rows): both grids of
+    two references equal the unsharded search's, with and without weighted
+    prediction."""
+    from hevc_tpu_torch import parallel
+    from hevc_tpu_torch.ops import me_ssd
+    f = moving_frames(3, 160, 112, seed=depth)
+    dt = me_ssd.me_dtype(depth)
+    up = lambda p: torch.from_numpy(  # noqa: E731
+        _deep_plane(p, depth).astype(dt)).to(dev)
+    orig = up(f[2][0])
+    refs = [me_ssd.pad_ref_device(up(f[k][0]), PAD) for k in (1, 0)]
+    for wp in (None, [(45, 3, 6), None]):
+        exp = me_ssd.me_grids_multi2(orig, refs, 32, 16, 24, 9000, pad=PAD,
+                                     depth=depth, wp=wp)
+        for mesh in (parallel.Mesh([dev, dev]), parallel.Mesh([dev] * 5)):
+            got = me_ssd.me_grids_multi2(orig, refs, 32, 16, 24, 9000,
+                                         pad=PAD, depth=depth, wp=wp,
+                                         mesh=mesh)
+            for a, b in zip(got, exp):
+                for u, v in zip(a, b):
+                    np.testing.assert_array_equal(u, v)
+
+
+def _deep_plane(p, depth):
+    """A uint8 plane at `depth` bits (me_dtype's range)."""
+    return at_depth(p, depth) if depth <= 14 else \
+        (p.astype(np.int32) << (depth - 8)) | p
+
+
+def test_mesh_frames_and_spatial_on_one_card(dev):
+    """me_grids_frames over 5 frames on a two-shard mesh (one chunk padded
+    by repeating the last frame) and me_grid_spatial, against the
+    unsharded search on the card; make_mesh asks for more cards than there
+    are and raises."""
+    from hevc_tpu_torch import parallel
+    from hevc_tpu_torch.encoder.native_frame import batched_me_grid
+    from hevc_tpu_torch.ops.interp import pad_plane
+    f = moving_frames(6, 128, 96, seed=4)
+    origs = np.stack([x[0] for x in f[1:]])
+    refs = np.stack([pad_plane(x[0].astype(np.int16), PAD) for x in f[:-1]])
+    mesh = parallel.Mesh([dev, dev])
+    gx, gy = parallel.me_grids_frames(origs, refs, size=32, search_range=8,
+                                      lam_fp=7000, mesh=mesh)
+    sx, sy = parallel.me_grid_spatial(origs[0], refs[0], size=32,
+                                      search_range=8, lam_fp=7000, mesh=mesh)
+    for i in range(len(origs)):
+        ex, ey = batched_me_grid(origs[i], refs[i], 32, 8, 7000, device=dev)
+        np.testing.assert_array_equal(gx[i], ex)
+        np.testing.assert_array_equal(gy[i], ey)
+        if i == 0:
+            np.testing.assert_array_equal(sx, ex)
+            np.testing.assert_array_equal(sy, ey)
+    with pytest.raises(RuntimeError):
+        parallel.make_mesh(torch.cuda.device_count() + 1)
+
+
+def test_twins_on_card_match_numpy(dev):
+    """The test-only device twins on the card against their numpy twins:
+    the GPU-mode tables, the HM-exact search, the transforms and the
+    quantizers."""
+    from hevc_tpu_torch.ops import me_exact, me_gpu_mode, quant, transform
+    rng = np.random.default_rng(3)
+    orig = rng.integers(0, 256, (128, 192), np.int64)
+    ref = rng.integers(0, 256, (128, 192), np.int64)
+    ref[8:72, 72:136] = orig[4:68, 68:132]
+    refp = np.pad(ref, 80, mode="edge")
+    for cx, cy, mvp, sr in ((0, 0, (0, 0), 5), (128, 64, (-9, 14), 8)):
+        ctu = orig[cy:cy + 64, cx:cx + 64]
+        for amp in (True, False):
+            a = me_gpu_mode.gpu_mode_tables_np(ctu, refp, cx, cy, 192, 128,
+                                               mvp, sr, 400000, amp)
+            b = me_gpu_mode.gpu_mode_tables(ctu, refp, cx, cy, 192, 128, mvp,
+                                            sr, 400000, amp, device=dev)
+            for u, v in zip(a, b):
+                np.testing.assert_array_equal(u, v)
+    plane = rng.integers(0, 1 << 16, (128, 192)).astype(np.int32)
+    refp = np.pad(plane, 96, mode="edge")
+    cur = np.roll(plane, (2, -3), (0, 1))
+    for n, sr, flat in ((8, 8, False), (16, 16, False), (64, 8, True)):
+        blk = np.full((n, n), 7) if flat else cur[16:16 + n, 32:32 + n]
+        args = (blk, refp, 32, 16, (3, -5), 300 * 256, sr, 192, 128)
+        assert me_exact.hm_full_search(*args, device=dev) == \
+            me_exact.hm_full_search_np(*args)
+    for size in (4, 8, 16, 32):
+        for bd in (8, 10, 16):
+            r = rng.integers(1 - (1 << bd), 1 << bd, (3, size, size))
+            got = transform.forward_transform(r, size=size, bit_depth=bd,
+                                              device=dev).cpu().numpy()
+            for i in range(3):
+                np.testing.assert_array_equal(
+                    got[i], transform.forward_transform_np(r[i], size, bd))
+            c = rng.integers(-32768, 32768, (3, size, size))
+            got = transform.inverse_transform(c, size=size, bit_depth=bd,
+                                              device=dev).cpu().numpy()
+            for i in range(3):
+                np.testing.assert_array_equal(
+                    got[i], transform.inverse_transform_np(c[i], size, bd))
+            for qp in (0, 22, 37, 51):
+                lv = quant.quantize(c, size=size, qp=qp, bit_depth=bd,
+                                    device=dev).cpu().numpy()
+                np.testing.assert_array_equal(
+                    lv, quant.quantize_np(c, size, qp, bd))
+                np.testing.assert_array_equal(
+                    quant.dequantize(lv, size=size, qp=qp, bit_depth=bd,
+                                     device=dev).cpu().numpy(),
+                    quant.dequantize_np(lv, size, qp, bd))
+    r = rng.integers(-255, 256, (7, 4, 4))
+    c = transform.forward_transform(r, size=4, is_dst=True, device=dev)
+    for i in range(7):
+        np.testing.assert_array_equal(
+            c[i].cpu().numpy(), transform.forward_transform_np(r[i], 4,
+                                                               is_dst=True))
+    np.testing.assert_array_equal(
+        transform.inverse_transform(c, size=4, is_dst=True,
+                                    device=dev).cpu().numpy(),
+        np.stack([transform.inverse_transform_np(x, 4, is_dst=True)
+                  for x in c.cpu().numpy()]))

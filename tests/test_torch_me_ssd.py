@@ -138,14 +138,22 @@ def test_local_only_is_read_at_first_use(monkeypatch):
 
 
 def test_unported_options_raise():
-    """The mesh search is the one option still unported; weighted
-    prediction and the refine tables (ported) return grids, the refine
-    tables as a fifth entry."""
-    orig = torch.zeros((64, 64), dtype=torch.uint8)
-    ref = me_ssd.pad_ref_device(orig, PAD)
-    with pytest.raises(NotImplementedError):
-        me_ssd.me_grids_multi2_async(orig, [ref], 32, 16, 8, LAM_FP,
-                                     pad=PAD, axis_name="blocks")
+    """Every option of the search is ported: a mesh search returns the
+    unsharded grids (and no refine tables, as the reference computes none
+    under a mesh); weighted prediction and the refine tables return grids,
+    the refine tables as a fifth entry."""
+    from hevc_tpu_torch import parallel
+    rng = np.random.default_rng(2)
+    orig = torch.from_numpy(rng.integers(0, 256, (96, 64)).astype(np.uint8))
+    ref = me_ssd.pad_ref_device(orig.roll((2, -3), (0, 1)), PAD)
+    exp = me_ssd.me_grids_multi2_async(orig, [ref], 32, 16, 8, LAM_FP,
+                                       pad=PAD)()
+    got = me_ssd.me_grids_multi2_async(
+        orig, [ref], 32, 16, 8, LAM_FP, pad=PAD, refine=True,
+        mesh=parallel.make_mesh(2, device="cpu"))()
+    assert [len(g) for g in got] == [4]
+    for a, b in zip(got[0], exp[0]):
+        np.testing.assert_array_equal(a, b)
     for kw, n in (({"refine": True}, 5), ({"wp": [(64, 2, 6)]}, 4)):
         out = me_ssd.me_grids_multi2_async(orig, [ref], 32, 16, 8, LAM_FP,
                                            pad=PAD, **kw)()

@@ -1,0 +1,13 @@
+"""Frame loop (encoder/top.py): the utils.timing loop span `frame_setup`
+(_encode_au's own time outside every section and other loop span: slice
+parameters, the engine's objects and planes, the picture's bookkeeping),
+ms a picture of the window. Loop spans are part of the loop's own time
+(glue_ms_per_frame) and never overlap a section."""
+from hevc_tpu_torch.utils.timing import timers
+
+
+def read(ctx):
+    loop = getattr(timers, "loop", None)
+    if loop is None or not ctx["pictures"]:
+        return None
+    return loop.get("frame_setup", 0.0) / ctx["pictures"] * 1e3

@@ -187,6 +187,11 @@ HD_444_MD5_SEED1 = "3e2d6f3c0152158d86662ed3b03743e1"
 HD_RA16_MD5_SEED1 = "c2dc11b8e614a04d51b070cd6695eed3"
 
 
+def sections(timers):
+    """The encoder's utils.timing sections, seconds by name."""
+    return {k: round(v, 4) for k, v in sorted(timers.total.items())}
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -1798,7 +1803,7 @@ def check_hd_encode(stream, secs, out, frames, tmp, name, md5_seed1, seed,
     log(f"  {len(stream)} bytes, md5 {md5}"
         f", {secs:.2f} s incl. warm-up; CLI: {fps_line[-1].strip()}")
     log(f"  Y-PSNR per frame: {[round(float(p), 3) for p in ps]}")
-    log(f"  host/device sections (s): {timers.summary()}")
+    log(f"  host/device sections (s): {sections(timers)}")
     if not stream.startswith(b"\x00\x00\x00\x01"):
         raise AssertionError("stream does not start with a start code")
     if seed == 1 and md5_seed1 is not None and md5 != md5_seed1:
@@ -1938,7 +1943,7 @@ def main():
                     timers.enabled = False
                 n = runtime.launches["refine_tables"]
                 md5s[name] = hashlib.md5(stream).hexdigest()
-                log_encode(name, env, stream, secs, out, timers.summary(),
+                log_encode(name, env, stream, secs, out, sections(timers),
                            f"refine_tables launches {n}")
                 if (n > 0) != (env["HEVC_TPU_ME_REFINE"] == "1"):
                     raise AssertionError(f"{name}: refine_tables launched "
@@ -2194,7 +2199,7 @@ def main():
                 timers.enabled = False
             n = runtime.launches["refine_tables"]
             log_encode("hd_ra16_refine", env, stream, secs, out,
-                       timers.summary(), f"refine_tables launches {n}")
+                       sections(timers), f"refine_tables launches {n}")
             if n <= 0:
                 raise AssertionError("hd_ra16_refine: refine_tables was "
                                      "never launched")

@@ -24,6 +24,7 @@ from .. import runtime
 from ..entropy.cabac import (EngineParamsC, NativeCtuEngine, SliceDataEncoder,
                              SliceParamsC)
 from ..ops.interp import pad_plane
+from ..utils.timing import timers
 
 PAD = 80
 
@@ -161,166 +162,168 @@ class NativeFrameEncoder:
         recon = [np.zeros((h, w), pdt),
                  np.zeros((h >> csx, w >> csx), pdt),
                  np.zeros((h >> csx, w >> csx), pdt)]
-        from ..utils.timing import timers
         me_x = me_y = me16_x = me16_y = me1_x = me1_y = None
         rf_tables = []  # device fractional-refine tables
         if self.is_inter:
             size = ctu >> self.cu_depth_target
             depth = self.sps.bit_depth_luma
-            timers_cm = timers.section("me_device")
-            timers_cm.__enter__()
-            me_x, me_y = [], []
-            # the 16-grid (deeper inter quadtree) is on by default and
-            # rides the same device dispatch as the CU-grid search
-            want16 = (_os.environ.get("HEVC_TPU_CU16", "1") != "0"
-                      and size > 16)
-            n0, n1 = len(self.ref), len(self.ref1) if self.is_b else 0
-            prefetched = self.me_prefetch is not None and want16
-            if prefetched:
-                # the one-frame lookahead already dispatched this frame's
-                # whole search (both lists, both grid sizes) during the
-                # PREVIOUS frame's encode; resolving here only waits out
-                # whatever device time was not hidden under host work
-                pre = self.me_prefetch()
-                me_x = [pre[p][0] for p in self.ref_pocs]
-                me_y = [pre[p][1] for p in self.ref_pocs]
-                me16_x = [pre[p][2] for p in self.ref_pocs]
-                me16_y = [pre[p][3] for p in self.ref_pocs]
-                if any(g is None for g in me16_x):
-                    me16_x = me16_y = None
-                if self.is_b:
-                    me1_x = [pre[p][0] for p in self.ref1_pocs]
-                    me1_y = [pre[p][1] for p in self.ref1_pocs]
-                for ri, p in enumerate(self.ref_pocs):
-                    ext = pre[p][4] if len(pre[p]) > 4 else None
-                    if ext:
-                        rf_tables.append((0, ri, ext["off32"],
-                                          ext["half32"]))
-                        rf_tables.append((1, ri, ext["off16"],
-                                          ext["half16"]))
-                if self.is_b:
-                    for ri, p in enumerate(self.ref1_pocs):
+            with timers.section("me_device"):
+                me_x, me_y = [], []
+                # the 16-grid (deeper inter quadtree) is on by default and
+                # rides the same device dispatch as the CU-grid search
+                want16 = (_os.environ.get("HEVC_TPU_CU16", "1") != "0"
+                          and size > 16)
+                n0, n1 = len(self.ref), len(self.ref1) if self.is_b else 0
+                prefetched = self.me_prefetch is not None and want16
+                timers.add("me_searched")
+                if prefetched:
+                    timers.add("me_lookahead_taken")
+                if prefetched:
+                    # the one-frame lookahead already dispatched this frame's
+                    # whole search (both lists, both grid sizes) during the
+                    # PREVIOUS frame's encode; resolving here only waits out
+                    # whatever device time was not hidden under host work
+                    pre = self.me_prefetch()
+                    me_x = [pre[p][0] for p in self.ref_pocs]
+                    me_y = [pre[p][1] for p in self.ref_pocs]
+                    me16_x = [pre[p][2] for p in self.ref_pocs]
+                    me16_y = [pre[p][3] for p in self.ref_pocs]
+                    if any(g is None for g in me16_x):
+                        me16_x = me16_y = None
+                    if self.is_b:
+                        me1_x = [pre[p][0] for p in self.ref1_pocs]
+                        me1_y = [pre[p][1] for p in self.ref1_pocs]
+                    for ri, p in enumerate(self.ref_pocs):
                         ext = pre[p][4] if len(pre[p]) > 4 else None
+                        if ext:
+                            rf_tables.append((0, ri, ext["off32"],
+                                              ext["half32"]))
+                            rf_tables.append((1, ri, ext["off16"],
+                                              ext["half16"]))
+                    if self.is_b:
+                        for ri, p in enumerate(self.ref1_pocs):
+                            ext = pre[p][4] if len(pre[p]) > 4 else None
+                            if ext:
+                                rf_tables.append((2, ri, ext["off32"],
+                                                  ext["half32"]))
+                # one upload of the source plane serves every ref's search
+                orig_dev = None
+                if not prefetched:
+                    from ..ops.me_ssd import me_dtype
+                    orig_dev = runtime.upload(orig[0].astype(me_dtype(depth)),
+                                              self.device)
+                all_dev = (orig_dev is not None and self.me_provider is None
+                           and _os.environ.get("HEVC_TPU_ME_MULTI", "1") != "0"
+                           and len(self.ref_dev) >= n0
+                           and all(d is not None for d in self.ref_dev[:n0])
+                           and (not self.is_b or (
+                               len(self.ref1_dev) >= n1
+                               and all(d is not None
+                                       for d in self.ref1_dev[:n1]))))
+                if all_dev:
+                    # BOTH lists' references (and both grid sizes) in one
+                    # launch sequence and one readback: the reference
+                    # searches each refIdx of each list separately
+                    # (TEncSearch.cpp:3027); here the unique reference
+                    # pictures are searched once each. Duplicate POCs
+                    # across L0/L1 (low-delay B) collapse to a single
+                    # search.
+                    from ..ops import me_ssd
+                    uniq, slot, uniq_wp = [], {}, []
+                    wps = ((list(self.wp0 or []) + [None] * n0)[:n0]
+                           + (list(self.wp1 or []) + [None] * n1)[:n1])
+                    for d, t in zip(self.ref_dev[:n0] + self.ref1_dev[:n1],
+                                    wps):
+                        if id(d) not in slot:
+                            slot[id(d)] = len(uniq)
+                            uniq.append(d)
+                            uniq_wp.append(t)
+                    l0s = [slot[id(d)] for d in self.ref_dev[:n0]]
+                    l1s = [slot[id(d)] for d in self.ref1_dev[:n1]]
+                    # default OFF — see encoder/top.py _rf(); none under a
+                    # mesh, as in the reference
+                    want_rf = (self.mesh is None and _os.environ.get(
+                        "HEVC_TPU_ME_REFINE", "0") == "1")
+                    if want16:
+                        out = me_ssd.me_grids_multi2(
+                            orig_dev, uniq, size, 16, self.search_range,
+                            self.lam_fp, pad=PAD, depth=depth, mesh=self.mesh,
+                            wp=uniq_wp, refine=want_rf)
+                    else:
+                        out = [(gx, gy, None, None) for gx, gy in
+                               me_ssd.me_grids_multi(
+                                   orig_dev, uniq, size, self.search_range,
+                                   self.lam_fp, pad=PAD, depth=depth,
+                                   mesh=self.mesh)]
+                    me_x = [out[i][0] for i in l0s]
+                    me_y = [out[i][1] for i in l0s]
+                    if want16:
+                        me16_x = [out[i][2] for i in l0s]
+                        me16_y = [out[i][3] for i in l0s]
+                        if any(g is None for g in me16_x):
+                            me16_x = me16_y = None
+                    if self.is_b:
+                        me1_x = [out[i][0] for i in l1s]
+                        me1_y = [out[i][1] for i in l1s]
+                    for ri, i in enumerate(l0s):
+                        ext = out[i][4] if len(out[i]) > 4 else None
+                        if ext:
+                            rf_tables.append((0, ri, ext["off32"],
+                                              ext["half32"]))
+                            rf_tables.append((1, ri, ext["off16"],
+                                              ext["half16"]))
+                    for ri, i in enumerate(l1s):
+                        ext = out[i][4] if len(out[i]) > 4 else None
                         if ext:
                             rf_tables.append((2, ri, ext["off32"],
                                               ext["half32"]))
-            # one upload of the source plane serves every ref's search
-            orig_dev = None
-            if not prefetched:
-                from ..ops.me_ssd import me_dtype
-                orig_dev = runtime.upload(orig[0].astype(me_dtype(depth)),
-                                          self.device)
-            all_dev = (orig_dev is not None and self.me_provider is None
-                       and _os.environ.get("HEVC_TPU_ME_MULTI", "1") != "0"
-                       and len(self.ref_dev) >= n0
-                       and all(d is not None for d in self.ref_dev[:n0])
-                       and (not self.is_b or (
-                           len(self.ref1_dev) >= n1
-                           and all(d is not None
-                                   for d in self.ref1_dev[:n1]))))
-            if all_dev:
-                # BOTH lists' references (and both grid sizes) in one
-                # launch sequence and one readback: the reference searches
-                # each refIdx of each list separately (TEncSearch.cpp:3027);
-                # here the unique reference pictures are searched once each.
-                # Duplicate POCs across L0/L1 (low-delay B) collapse to a
-                # single search.
-                from ..ops import me_ssd
-                uniq, slot, uniq_wp = [], {}, []
-                wps = ((list(self.wp0 or []) + [None] * n0)[:n0]
-                       + (list(self.wp1 or []) + [None] * n1)[:n1])
-                for d, t in zip(self.ref_dev[:n0] + self.ref1_dev[:n1],
-                                wps):
-                    if id(d) not in slot:
-                        slot[id(d)] = len(uniq)
-                        uniq.append(d)
-                        uniq_wp.append(t)
-                l0s = [slot[id(d)] for d in self.ref_dev[:n0]]
-                l1s = [slot[id(d)] for d in self.ref1_dev[:n1]]
-                # default OFF — see encoder/top.py _rf(); none under a
-                # mesh, as in the reference
-                want_rf = (self.mesh is None and _os.environ.get(
-                    "HEVC_TPU_ME_REFINE", "0") == "1")
-                if want16:
-                    out = me_ssd.me_grids_multi2(
-                        orig_dev, uniq, size, 16, self.search_range,
-                        self.lam_fp, pad=PAD, depth=depth, mesh=self.mesh,
-                        wp=uniq_wp, refine=want_rf)
-                else:
-                    out = [(gx, gy, None, None) for gx, gy in
-                           me_ssd.me_grids_multi(
-                               orig_dev, uniq, size, self.search_range,
-                               self.lam_fp, pad=PAD, depth=depth,
-                               mesh=self.mesh)]
-                me_x = [out[i][0] for i in l0s]
-                me_y = [out[i][1] for i in l0s]
-                if want16:
-                    me16_x = [out[i][2] for i in l0s]
-                    me16_y = [out[i][3] for i in l0s]
-                    if any(g is None for g in me16_x):
-                        me16_x = me16_y = None
-                if self.is_b:
-                    me1_x = [out[i][0] for i in l1s]
-                    me1_y = [out[i][1] for i in l1s]
-                for ri, i in enumerate(l0s):
-                    ext = out[i][4] if len(out[i]) > 4 else None
-                    if ext:
-                        rf_tables.append((0, ri, ext["off32"],
-                                          ext["half32"]))
-                        rf_tables.append((1, ri, ext["off16"],
-                                          ext["half16"]))
-                for ri, i in enumerate(l1s):
-                    ext = out[i][4] if len(out[i]) > 4 else None
-                    if ext:
-                        rf_tables.append((2, ri, ext["off32"],
-                                          ext["half32"]))
-            elif not prefetched:
-                for r, ref in enumerate(self.ref):
-                    pre = (self.me_provider(size, self.search_range,
-                                            self.lam_fp)
-                           if r == 0 and self.me_provider else None)
-                    dev = self.ref_dev[r] if r < len(self.ref_dev) else None
-                    wpv = (self.wp0[r] if self.wp0 and r < len(self.wp0)
-                           else None)
-                    gx, gy = pre if pre is not None else batched_me_grid(
-                        orig[0], ref[0], size, self.search_range,
-                        self.lam_fp, ref_dev=dev, orig_dev=orig_dev,
-                        depth=depth, wpv=wpv, device=self.device)
-                    me_x.append(gx)
-                    me_y.append(gy)
-                if want16:
-                    me16_x, me16_y = [], []
+                elif not prefetched:
                     for r, ref in enumerate(self.ref):
-                        dev = (self.ref_dev[r]
-                               if r < len(self.ref_dev) else None)
-                        wpv = (self.wp0[r]
-                               if self.wp0 and r < len(self.wp0) else None)
+                        pre = (self.me_provider(size, self.search_range,
+                                                self.lam_fp)
+                               if r == 0 and self.me_provider else None)
+                        dev = (self.ref_dev[r] if r < len(self.ref_dev)
+                               else None)
+                        wpv = (self.wp0[r] if self.wp0 and r < len(self.wp0)
+                               else None)
+                        gx, gy = pre if pre is not None else batched_me_grid(
+                            orig[0], ref[0], size, self.search_range,
+                            self.lam_fp, ref_dev=dev, orig_dev=orig_dev,
+                            depth=depth, wpv=wpv, device=self.device)
+                        me_x.append(gx)
+                        me_y.append(gy)
+                    if want16:
+                        me16_x, me16_y = [], []
+                        for r, ref in enumerate(self.ref):
+                            dev = (self.ref_dev[r]
+                                   if r < len(self.ref_dev) else None)
+                            wpv = (self.wp0[r]
+                                   if self.wp0 and r < len(self.wp0) else None)
+                            gx, gy = batched_me_grid(
+                                orig[0], ref[0], 16,
+                                min(self.search_range, 16), self.lam_fp,
+                                ref_dev=dev, orig_dev=orig_dev, depth=depth,
+                                wpv=wpv, device=self.device)
+                            me16_x.append(gx)
+                            me16_y.append(gy)
+                        if any(g is None for g in me16_x):
+                            me16_x = me16_y = None
+                if (self.is_b and self.ref1 is not None and not all_dev
+                        and not prefetched):
+                    # list-1 integer search (B slices; reference
+                    # predInterSearch list-1 loop)
+                    me1_x, me1_y = [], []
+                    for r, ref in enumerate(self.ref1):
+                        dev = self.ref1_dev[r] if r < len(self.ref1_dev) \
+                            else None
+                        wpv = (self.wp1[r] if self.wp1 and r < len(self.wp1)
+                               else None)
                         gx, gy = batched_me_grid(
-                            orig[0], ref[0], 16,
-                            min(self.search_range, 16), self.lam_fp,
-                            ref_dev=dev, orig_dev=orig_dev, depth=depth,
-                            wpv=wpv, device=self.device)
-                        me16_x.append(gx)
-                        me16_y.append(gy)
-                    if any(g is None for g in me16_x):
-                        me16_x = me16_y = None
-            if (self.is_b and self.ref1 is not None and not all_dev
-                    and not prefetched):
-                # list-1 integer search (B slices; reference
-                # predInterSearch list-1 loop)
-                me1_x, me1_y = [], []
-                for r, ref in enumerate(self.ref1):
-                    dev = self.ref1_dev[r] if r < len(self.ref1_dev) \
-                        else None
-                    wpv = (self.wp1[r] if self.wp1 and r < len(self.wp1)
-                           else None)
-                    gx, gy = batched_me_grid(
-                        orig[0], ref[0], size, self.search_range,
-                        self.lam_fp, ref_dev=dev, orig_dev=orig_dev,
-                        depth=depth, wpv=wpv, device=self.device)
-                    me1_x.append(gx)
-                    me1_y.append(gy)
-            timers_cm.__exit__(None, None, None)
+                            orig[0], ref[0], size, self.search_range,
+                            self.lam_fp, ref_dev=dev, orig_dev=orig_dev,
+                            depth=depth, wpv=wpv, device=self.device)
+                        me1_x.append(gx)
+                        me1_y.append(gy)
         intra_hints = None
         if (self.sp.slice_type == 2 and _os.environ.get(
                 "HEVC_TPU_INTRA_SCREEN", "1") != "0"):
@@ -341,7 +344,7 @@ class NativeFrameEncoder:
             strong_smoothing=sps.strong_intra_smoothing_enabled_flag,
             is_b=1 if self.is_b else 0, sqrt_lam=self.sqrt_lam)
         from ..entropy.cabac import (FrameDecisions, engine_encode_frame,
-                                     engine_encode_frame_order,
+                                     engine_encode_frame_order, engine_trace,
                                      scaling_blob, tile_scan_order)
         sblob = (scaling_blob(sps.scaling_list_data)
                  if (sps.scaling_list_enabled_flag
@@ -365,6 +368,7 @@ class NativeFrameEncoder:
                         eng.set_intra_hints(intra_hints)
                     if sblob is not None:
                         eng.set_scaling(sblob)
+                    engine_trace(eng, timers.enabled)
                     engine_encode_frame_order(eng, ctus, ctus_w, fd)
             return fd, recon
         eng = NativeCtuEngine(self.sp, ep, self.senc, orig, recon,
@@ -376,6 +380,7 @@ class NativeFrameEncoder:
             eng.set_intra_hints(intra_hints)
         if sblob is not None:
             eng.set_scaling(sblob)
+        engine_trace(eng, timers.enabled)
         with timers.section("engine_host"):
             if self.sp.tile_cols > 1 or self.sp.tile_rows > 1:
                 order = tile_scan_order(w, h, ctu, self.sp.tile_cols,

@@ -32,6 +32,7 @@ from ..entropy import headers, nal, sei
 from ..entropy.cabac import SliceDataEncoder, make_slice_params
 from .. import runtime
 from ..io.cfg import EncoderConfig
+from ..utils.timing import timers
 from .intra_frame import IntraFrameEncoder
 from .inter_frame import PFrameEncoder
 
@@ -493,8 +494,10 @@ class EncoderTop:
             from ..ops import me_ssd
             from .native_frame import PAD
             dt = me_ssd.me_dtype(self.sps.bit_depth_luma)
-            ref = me_ssd.pad_ref_device(
-                runtime.upload(np.asarray(planes[0], dt), self.device), PAD)
+            with timers.loop_span("ref_prep"):
+                ref = me_ssd.pad_ref_device(
+                    runtime.upload(np.asarray(planes[0], dt), self.device),
+                    PAD)
             self._dev_refs[poc] = ref
         return ref
 
@@ -508,8 +511,9 @@ class EncoderTop:
             from ..entropy.cabac import pad_plane_native
             from .native_frame import PAD
             pdt = np.int16 if self.sps.bit_depth_luma <= 14 else np.int32
-            cached = [pad_plane_native(np.asarray(p, pdt), PAD)
-                      for p in planes]
+            with timers.loop_span("ref_prep"):
+                cached = [pad_plane_native(np.asarray(p, pdt), PAD)
+                          for p in planes]
             self._padded_refs[poc] = cached
         return cached
 
@@ -611,9 +615,12 @@ class EncoderTop:
         before encode_frame(frame N). Always safe — a frame whose
         prediction structure cannot be prefetched simply takes the
         synchronous path."""
-        planes = self._pad_to_coded(planes)
-        self.prefetch_intra_screen(planes)
-        self._prefetch_me(planes)
+        # the work is for the next picture in display order
+        nxt = (self.in_count if self.reordered else self.poc) + 1
+        with timers.loop_span("lookahead", picture=nxt):
+            planes = self._pad_to_coded(planes)
+            self.prefetch_intra_screen(planes)
+            self._prefetch_me(planes)
 
     def _next_frame_plan(self):
         """Predict the NEXT submitted frame's coding parameters (cvs_poc,
@@ -1174,9 +1181,19 @@ class EncoderTop:
             idr=False)
 
     # ------------------------------------------------------------------
-    def _encode_au(self, planes, *, display_poc, cvs_poc, stype, slice_qp,
-                   qf, rps, ref_l0, ref_l1, idr,
-                   use_sps_rps: bool = False, rps_sps_idx: int = 0) -> bytes:
+    def _encode_au(self, planes, *, display_poc, **kw) -> bytes:
+        """Code one picture into its access unit (_code_au). Its work is
+        for display_poc; the loop span frame_setup holds what this takes
+        outside every section and every other loop span: slice
+        parameters, the engine's objects and planes before the engine
+        call, and the picture's bookkeeping after it."""
+        timers.picture = display_poc
+        with timers.loop_span("frame_setup"):
+            return self._code_au(planes, display_poc=display_poc, **kw)
+
+    def _code_au(self, planes, *, display_poc, cvs_poc, stype, slice_qp,
+                 qf, rps, ref_l0, ref_l1, idr,
+                 use_sps_rps: bool = False, rps_sps_idx: int = 0) -> bytes:
         """ref_l0/ref_l1: active reference lists, each a list of
         (cvs_poc, recon_planes) in final L0/L1 order."""
         cfg = self.cfg
@@ -1522,7 +1539,6 @@ class EncoderTop:
             ref_pocs = ([p for p, _ in ref_l0],
                         [p for p, _ in ref_l1] if is_b else [])
 
-        from ..utils.timing import timers
         # multi-slice partition (SliceMode 1: SliceArgument CTUs per
         # slice, reference TEncSlice::xDetermineStartAndBoundingCtuTsAddr)
         slice_objs = None
@@ -1626,7 +1642,8 @@ class EncoderTop:
         # searches filtered refs — TEncGOP calls GPU ME after the loop
         # filters — at the cost of serializing against them.)
         if self.cfg.intra_period != 1 and not idr:
-            self._me_pending_early_dispatch(cvs_poc, recon[0])
+            with timers.loop_span("ref_prep"):
+                self._me_pending_early_dispatch(cvs_poc, recon[0])
 
         # in-loop deblocking
         if (not self.pps.pps_deblocking_filter_disabled_flag
@@ -1691,18 +1708,16 @@ class EncoderTop:
             lam = pic_lam
             if use_native:
                 from ..entropy.cabac import sao_estimate_native
-                timers_sao = timers.section("sao")
-                timers_sao.__enter__()
-                sids = None
-                if slice_objs is not None and len(slice_objs) > 1:
-                    sids = np.zeros(ctus_w * ctus_h, np.int32)
-                    for si, (_s, _e, ctus) in enumerate(slice_objs):
-                        for (cx, cy) in ctus:
-                            sids[cy * ctus_w + cx] = si
-                sao_params = sao_estimate_native(
-                    planes, recon, self.sps, self.sps.bit_depth_luma, lam,
-                    slice_ids=sids)
-                timers_sao.__exit__(None, None, None)
+                with timers.section("sao"):
+                    sids = None
+                    if slice_objs is not None and len(slice_objs) > 1:
+                        sids = np.zeros(ctus_w * ctus_h, np.int32)
+                        for si, (_s, _e, ctus) in enumerate(slice_objs):
+                            for (cx, cy) in ctus:
+                                sids[cy * ctus_w + cx] = si
+                    sao_params = sao_estimate_native(
+                        planes, recon, self.sps, self.sps.bit_depth_luma,
+                        lam, slice_ids=sids)
             else:
                 sao_params = saolib.estimate_sao(
                     planes, recon, self.sps, self.sps.bit_depth_luma, lam)
@@ -1879,29 +1894,31 @@ class EncoderTop:
                             senc.encode_ctu(cx, cy, decisions[i], last)
                             i += 1
                 data = senc.get_bytes()
-        if slice_rbsps is None and (
-                self.pps.entropy_coding_sync_enabled_flag
-                or self.pps.tiles_enabled_flag):
-            # WPP entry points (spec 7.4.7.1): offsets are NAL-payload byte
-            # counts (incl. emulation prevention); the header length feeds
-            # back into the escape scan, so iterate to the fixed point
-            from ..entropy.cabac import _encoder_substreams
-            sizes = _encoder_substreams(senc)
-            for _ in range(5):
-                hdr = headers.write_slice_header(sh, self.sps, self.pps)
-                bounds = [len(hdr)]
-                acc = len(hdr)
-                for sz in sizes[:-1]:
-                    acc += sz
-                    bounds.append(acc)
-                esc = nal.escaped_sizes(hdr + data, bounds)
-                offs = esc[:-1] if len(esc) > 1 else []
-                if offs == sh.entry_point_offsets:
-                    break
-                sh.entry_point_offsets = offs
-        if slice_rbsps is None:
-            slice_rbsps = [headers.write_slice_header(sh, self.sps,
-                                                      self.pps) + data]
+        with timers.loop_span("stream_write"):
+            if slice_rbsps is None and (
+                    self.pps.entropy_coding_sync_enabled_flag
+                    or self.pps.tiles_enabled_flag):
+                # WPP entry points (spec 7.4.7.1): offsets are NAL-payload
+                # byte counts (incl. emulation prevention); the header
+                # length feeds back into the escape scan, so iterate to
+                # the fixed point
+                from ..entropy.cabac import _encoder_substreams
+                sizes = _encoder_substreams(senc)
+                for _ in range(5):
+                    hdr = headers.write_slice_header(sh, self.sps, self.pps)
+                    bounds = [len(hdr)]
+                    acc = len(hdr)
+                    for sz in sizes[:-1]:
+                        acc += sz
+                        bounds.append(acc)
+                    esc = nal.escaped_sizes(hdr + data, bounds)
+                    offs = esc[:-1] if len(esc) > 1 else []
+                    if offs == sh.entry_point_offsets:
+                        break
+                    sh.entry_point_offsets = offs
+            if slice_rbsps is None:
+                slice_rbsps = [headers.write_slice_header(
+                    sh, self.sps, self.pps) + data]
 
         if sao_on:
             if use_native:
@@ -1922,9 +1939,72 @@ class EncoderTop:
         # the whole NAL/SEI/hash/stats host tail below (for IDR frames the
         # DPB reset below re-uploads — intra frames have no pending search)
         if self.cfg.intra_period != 1 and not idr:
-            self._dev_ref(cvs_poc, recon)
-            self._me_pending_late_dispatch(cvs_poc)
+            with timers.loop_span("ref_prep"):
+                self._dev_ref(cvs_poc, recon)
+                self._me_pending_late_dispatch(cvs_poc)
 
+        with timers.loop_span("stream_write"):
+            nals, firsts, digest = self._au_nals(
+                sh, slice_rbsps, recon, idr=idr, display_poc=display_poc,
+                cvs_poc=cvs_poc)
+
+        bits = sum(len(x) for x in nals) * 8
+        with timers.section("hash_psnr"):
+            if self.sps.chroma_format_idc == 0:
+                # monochrome: luma PSNR only (chroma reported as 0 like
+                # the reference's zero-MSE guard output)
+                psnr = _psnr(planes[:1], recon[:1],
+                             self.sps.bit_depth_luma) + [0.0, 0.0]
+            else:
+                psnr = _psnr(planes, recon, self.sps.bit_depth_luma)
+        self.stats.append({"poc": display_poc, "bits": bits, "psnr": psnr,
+                           "md5": digest[0].hex(), "qp": slice_qp,
+                           "type": stype.name})
+        if self.rc:
+            self.rc.update(bits)
+        if idr:
+            self.dpb.clear()
+            self.dpb_motion.clear()
+            self._dev_refs.clear()
+            self._padded_refs.clear()
+        if self.sps.sps_temporal_mvp_enabled_flag:
+            from ..entropy.cabac import motion_field
+            with timers.loop_span("motion_field"):
+                self.dpb_motion[cvs_poc] = motion_field(
+                    decisions, self.sps, ref_pocs[0], ref_pocs[1], cvs_poc)
+        self.dpb[cvs_poc] = recon
+        # upload the new reference now, so the next frame's motion search
+        # finds it on the device
+        if self.cfg.intra_period != 1:
+            # the prefetched next-frame search was waiting for exactly
+            # this recon — dispatch it now so it computes under the
+            # remaining host work (entropy/hash/IO + next-frame setup)
+            with timers.loop_span("ref_prep"):
+                self._dev_ref(cvs_poc, recon)
+                self._me_pending_late_dispatch(cvs_poc)
+        # bounded DPB: evict pictures no future RPS can reference
+        # (reference TComSlice::applyReferencePictureSet bumping)
+        keep = self.gop_size + self._max_ref_delta
+        top = max(self.dpb)
+        for q in [q for q in self.dpb if q < top - keep]:
+            del self.dpb[q]
+            self.dpb_motion.pop(q, None)
+            self._dev_refs.pop(q, None)
+            self._padded_refs.pop(q, None)
+        self.dpb_recon = recon
+        self.recon = recon
+        self.out_queue.append((display_poc, recon))
+        # uiColDir flips after every coded picture (TEncGOP.cpp:1299)
+        self._col_dir = 1 - self._col_dir
+        with timers.loop_span("stream_write"):
+            return nal.write_annexb(nals, firsts)
+
+    def _au_nals(self, sh, slice_rbsps, recon, *, idr, display_poc,
+                 cvs_poc):
+        """The access unit's NAL units in order (parameter sets on the
+        first, SEI, the slice segments, the decoded-picture hash), whether
+        each starts with a four-byte start code, and the hash's digest."""
+        cfg = self.cfg
         nals, firsts = [], []
         first_au = not self.stats
         if first_au:
@@ -2039,54 +2119,7 @@ class EncoderTop:
                                                     3: 2}.get(ht, 0)),
                 int(NalUnitType.SUFFIX_SEI_NUT)))
             firsts.append(False)
-
-        bits = sum(len(x) for x in nals) * 8
-        with timers.section("hash_psnr"):
-            if self.sps.chroma_format_idc == 0:
-                # monochrome: luma PSNR only (chroma reported as 0 like
-                # the reference's zero-MSE guard output)
-                psnr = _psnr(planes[:1], recon[:1],
-                             self.sps.bit_depth_luma) + [0.0, 0.0]
-            else:
-                psnr = _psnr(planes, recon, self.sps.bit_depth_luma)
-        self.stats.append({"poc": display_poc, "bits": bits, "psnr": psnr,
-                           "md5": digest[0].hex(), "qp": slice_qp,
-                           "type": stype.name})
-        if self.rc:
-            self.rc.update(bits)
-        if idr:
-            self.dpb.clear()
-            self.dpb_motion.clear()
-            self._dev_refs.clear()
-            self._padded_refs.clear()
-        if self.sps.sps_temporal_mvp_enabled_flag:
-            from ..entropy.cabac import motion_field
-            self.dpb_motion[cvs_poc] = motion_field(
-                decisions, self.sps, ref_pocs[0], ref_pocs[1], cvs_poc)
-        self.dpb[cvs_poc] = recon
-        # upload the new reference now, so the next frame's motion search
-        # finds it on the device
-        if self.cfg.intra_period != 1:
-            self._dev_ref(cvs_poc, recon)
-            # the prefetched next-frame search was waiting for exactly
-            # this recon — dispatch it now so it computes under the
-            # remaining host work (entropy/hash/IO + next-frame setup)
-            self._me_pending_late_dispatch(cvs_poc)
-        # bounded DPB: evict pictures no future RPS can reference
-        # (reference TComSlice::applyReferencePictureSet bumping)
-        keep = self.gop_size + self._max_ref_delta
-        top = max(self.dpb)
-        for q in [q for q in self.dpb if q < top - keep]:
-            del self.dpb[q]
-            self.dpb_motion.pop(q, None)
-            self._dev_refs.pop(q, None)
-            self._padded_refs.pop(q, None)
-        self.dpb_recon = recon
-        self.recon = recon
-        self.out_queue.append((display_poc, recon))
-        # uiColDir flips after every coded picture (TEncGOP.cpp:1299)
-        self._col_dir = 1 - self._col_dir
-        return nal.write_annexb(nals, firsts)
+        return nals, firsts, digest
 
 
 def _psnr(orig, recon, bd):

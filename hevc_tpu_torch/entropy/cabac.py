@@ -113,6 +113,10 @@ def get_lib(pel32: bool = False) -> ctypes.CDLL:
                                    ctypes.c_int, pel_np]
     lib.hevc_engine_frame_stats.argtypes = [
         ctypes.POINTER(ctypes.c_longlong)]
+    lib.hevc_engine_trace.argtypes = [ctypes.c_int]
+    lib.hevc_engine_trace_stats.restype = ctypes.c_int
+    lib.hevc_engine_trace_stats.argtypes = [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
     lib.hevc_enc_create.restype = ctypes.c_void_p
     lib.hevc_enc_create.argtypes = [ctypes.POINTER(SliceParamsC)]
     lib.hevc_enc_destroy.argtypes = [ctypes.c_void_p]
@@ -832,14 +836,40 @@ class _MapsView:
     __slots__ = _MAP_FIELDS
 
 
+# the engine's trace totals (hevc_engine_trace_stats), in its order: the
+# seconds its threads spent inside encode_ctu (busy), waiting on the CTU
+# row above (wait), threads x the frame calls' wall time, and busy split
+# into the RD stages; then the number of traced frame calls
+ENGINE_TRACE_KEYS = ("engine_busy_s", "engine_wait_s", "engine_thread_wall_s",
+                     "engine_intra_s", "engine_merge_s",
+                     "engine_inter_search_s", "engine_residual_s",
+                     "engine_other_s", "engine_traced_frames")
+
+
 def engine_frame_stats(pel32: bool = False) -> dict:
-    """Cumulative engine frame-drive telemetry: wall vs process-CPU
-    seconds across every hevc_engine_frame call so far. A wall >> cpu
-    ratio means the engine thread was starved (shared-host scheduling,
-    wavefront coordination), not computing."""
+    """Cumulative engine frame-drive telemetry across every frame call so
+    far: wall vs process-CPU seconds (always counted; a wall >> cpu ratio
+    means the engine thread was starved, not computing), and the trace
+    totals of ENGINE_TRACE_KEYS (counted only while engine_trace is on)."""
+    lib = get_lib(pel32)
     buf = (ctypes.c_longlong * 2)()
-    get_lib(pel32).hevc_engine_frame_stats(buf)
-    return {"engine_wall_s": buf[0] / 1e9, "engine_cpu_s": buf[1] / 1e9}
+    lib.hevc_engine_frame_stats(buf)
+    out = {"engine_wall_s": buf[0] / 1e9, "engine_cpu_s": buf[1] / 1e9}
+    n = len(ENGINE_TRACE_KEYS)
+    tot = (ctypes.c_longlong * n)()
+    if lib.hevc_engine_trace_stats(tot, n) != n:
+        raise RuntimeError("hevc_engine_trace_stats: unexpected layout")
+    for i, k in enumerate(ENGINE_TRACE_KEYS[:-1]):
+        out[k] = tot[i] / 1e9
+    out[ENGINE_TRACE_KEYS[-1]] = tot[n - 1]
+    return out
+
+
+def engine_trace(engine: "NativeCtuEngine", on: bool) -> None:
+    """Switch the engine's trace counters (stage, busy and wait times) on
+    or off for the frame calls that follow, in the library the engine
+    was built by."""
+    engine._lib.hevc_engine_trace(1 if on else 0)
 
 
 def engine_encode_frame(engine: "NativeCtuEngine", ctus_w: int, ctus_h: int,

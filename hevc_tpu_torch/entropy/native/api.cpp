@@ -6,6 +6,7 @@
 #include <vector>
 
 #include "dsp.h"
+#include "engine.h"
 #include "syntax.h"
 
 using namespace hevctpu;
@@ -67,11 +68,17 @@ void hevc_pad_plane(const pel_t* src, int h, int w, int pad, pel_t* dst) {
   }
 }
 
-// engine phase profiler readback (HEVC_TPU_ENGINE_PROF=1): thread-CPU ns
-// per phase — 0 screen, 1 luma modes, 2 chroma modes, 3 TB coding
-extern "C++" { namespace hevctpu { struct EngineProf { std::atomic<long long> ns[22]; bool on; }; extern EngineProf g_eprof; } }
-void hevc_engine_prof(long long* out) {
-  for (int i = 0; i < 22; ++i) out[i] = hevctpu::g_eprof.ns[i].load();
+// The engine's trace counters (engine.h, namespace trace): switched on or
+// off for the frame calls that start after this call.
+void hevc_engine_trace(int on) { hevctpu::trace::g_on.store(on != 0); }
+
+// Their process-wide totals, trace::kTotals of them in trace::Total order:
+// ns of busy, wait, threads x wall, intra, merge, inter search, residual,
+// other; then the number of traced frame calls.
+int hevc_engine_trace_stats(long long* out, int n) {
+  if (n < hevctpu::trace::kTotals) return -1;
+  hevctpu::trace::totals(out);
+  return hevctpu::trace::kTotals;
 }
 
 // Always-on frame-drive telemetry: wall vs process-CPU ns accumulated per
@@ -266,7 +273,6 @@ int hevc_dec_ctu(void* h, int ctu_x, int ctu_y, uint8_t* cu_depth,
 }  // extern "C"
 
 // ---- native CU engine ------------------------------------------------------
-#include "engine.h"
 
 extern "C" {
 
@@ -426,7 +432,11 @@ extern "C" void hevc_engine_frame(void* eng, int ctus_w, int ctus_h,
   // ~2x usable parallelism at best), and the sequential path's exact
   // shadow-context RD estimates are worth more there. An explicit
   // HEVC_TPU_THREADS is always honoured (tests and tuning rely on it).
-  if (nthreads == 1 || ctus_h == 1 || (!explicit_threads && ctus_h < 6)) {
+  bool wavefront = !(nthreads == 1 || ctus_h == 1 ||
+                     (!explicit_threads && ctus_h < 6));
+  hevctpu::trace::Frame trace_frame(wavefront ? nthreads : 1);
+  if (!wavefront) {
+    hevctpu::trace::Worker tw(trace_frame);
     ((CtuEngine*)eng)->set_sequential(true);
     for (int cy = 0; cy < ctus_h; ++cy)
       for (int cx = 0; cx < ctus_w; ++cx)
@@ -438,22 +448,26 @@ extern "C" void hevc_engine_frame(void* eng, int ctus_w, int ctus_h,
   for (auto& a : done) a.store(0);
   std::atomic<int> next_row{0};
   auto worker = [&]() {
+    hevctpu::trace::Worker tw(trace_frame);
     for (;;) {
       int cy = next_row.fetch_add(1);
       if (cy >= ctus_h) return;
       for (int cx = 0; cx < ctus_w; ++cx) {
         if (cy > 0) {
           int need = std::min(cx + 2, ctus_w);
-          // bounded spin, then futex sleep (atomic::wait) — yield-spin
-          // burns a vCPU and degrades badly on oversubscribed hosts
-          int spins = 0;
-          for (;;) {
-            int got = done[cy - 1].load(std::memory_order_acquire);
-            if (got >= need) break;
-            if (++spins < 64) {
-              std::this_thread::yield();
-            } else {
-              done[cy - 1].wait(got, std::memory_order_acquire);
+          int got = done[cy - 1].load(std::memory_order_acquire);
+          if (got < need) {
+            hevctpu::trace::Wait tw_wait;
+            // bounded spin, then futex sleep (atomic::wait) — yield-spin
+            // burns a vCPU and degrades badly on oversubscribed hosts
+            int spins = 0;
+            while (got < need) {
+              if (++spins < 64) {
+                std::this_thread::yield();
+              } else {
+                done[cy - 1].wait(got, std::memory_order_acquire);
+              }
+              got = done[cy - 1].load(std::memory_order_acquire);
             }
           }
         }
@@ -476,6 +490,8 @@ extern "C" void hevc_engine_frame_order(void* eng, int nctu, const int32_t* cxs,
                              int cfmt, STACKED_ARGS) {
   STACKED_INIT(ctu_size, cfmt);
   FrameClock _fc;
+  hevctpu::trace::Frame trace_frame(1);
+  hevctpu::trace::Worker tw(trace_frame);
   ((CtuEngine*)eng)->set_sequential(true);
   for (int i = 0; i < nctu; ++i)
     ((CtuEngine*)eng)->encode_ctu(cxs[i], cys[i],

@@ -14,77 +14,50 @@
 
 #include "dsp.h"
 
-// ---------------------------------------------------------------------------
-// Lightweight engine phase profiler (HEVC_TPU_ENGINE_PROF=1): thread-CPU
-// nanoseconds accumulated per phase, read back via hevc_engine_prof()
-// (the analog of the reference's ENC_DEC_TRACE/TComCodingStatistics
-// timing hooks). Near-zero overhead when the env var is unset.
-#include <atomic>
-#include <ctime>
-#if defined(__x86_64__)
-#include <x86intrin.h>
-#endif
-
 namespace hevctpu {
-// Tick source: raw TSC (~20 cycles, no syscall) so enabling the profiler
-// does not itself dominate the measured phases — phase values are CPU
-// ticks, meaningful as relative shares. clock_gettime fallback elsewhere.
-static inline long long prof_ticks() {
-#if defined(__x86_64__)
-  return (long long)__rdtsc();
-#else
-  timespec t;
-  clock_gettime(CLOCK_THREAD_CPUTIME_ID, &t);
-  return t.tv_sec * 1000000000ll + t.tv_nsec;
-#endif
+namespace trace {
+std::atomic<bool> g_on{false};
+thread_local Thread tl;
+namespace {
+std::atomic<long long> g_totals[kTotals];
+}  // namespace
+
+void totals(long long* out) {
+  for (int i = 0; i < kTotals; ++i) out[i] = g_totals[i].load();
 }
-struct EngineProf {
-  std::atomic<long long> ns[22];
-  bool on;
-  EngineProf() : on(false) {
-    for (auto& a : ns) a.store(0);
-    const char* e = getenv("HEVC_TPU_ENGINE_PROF");
-    on = e && *e == '1';
-  }
-};
-EngineProf g_eprof;
-struct ProfScope {
-  int slot;
-  long long t0;
-  explicit ProfScope(int s) : slot(s), t0(0) {
-    if (g_eprof.on) t0 = prof_ticks();
-  }
-  ~ProfScope() {
-    if (g_eprof.on) g_eprof.ns[slot] += prof_ticks() - t0;
-  }
-};
-// phase slots (outer 0-3 are disjoint; 4-6 nest inside 3):
-// 0 intra_screen_cost, 1 luma mode trials, 2 chroma mode decision,
-// 3 TB coding (xform+quant+recon+rate), 4 fwd xform+quant, 5 rdoq,
-// 6 rate, 7 pred+refs, 8 dequant+inv, 9 TS trial,
-// 10 whole-CTU envelope, 11 shadow-context replay,
-// inter CU stages: 12 merge/skip eval, 13 AMVP+frac+bi refine,
-// 14 intra screen + rect/AMP, 15 residual coding
-struct PhaseSwitcher {
-  int slot;
-  long long t0;
-  explicit PhaseSwitcher(int s) : slot(s), t0(now()) {}
-  static long long now() {
-    if (!g_eprof.on) return 0;
-    return prof_ticks();
-  }
-  void to(int s) {
-    if (g_eprof.on) {
-      long long t = now();
-      g_eprof.ns[slot] += t - t0;
-      t0 = t;
-    }
-    slot = s;
-  }
-  ~PhaseSwitcher() {
-    if (g_eprof.on) g_eprof.ns[slot] += now() - t0;
-  }
-};
+
+Frame::Frame(int nthreads)
+    : on_(g_on.load(std::memory_order_relaxed)), nthreads_(nthreads) {
+  if (!on_) return;
+  clock_gettime(CLOCK_MONOTONIC, &w0_);
+  t0_ = ticks();
+}
+
+void Frame::add(const Sums& s) {
+  std::lock_guard<std::mutex> g(mu_);
+  for (int i = 0; i < kStages; ++i) sum_.stage[i] += s.stage[i];
+  sum_.busy += s.busy;
+  sum_.wait += s.wait;
+}
+
+Frame::~Frame() {
+  if (!on_) return;
+  // the tick window lies inside the clock's, so no thread's busy + wait
+  // can scale past the wall time
+  long long t1 = ticks();
+  timespec w1;
+  clock_gettime(CLOCK_MONOTONIC, &w1);
+  long long wall = (w1.tv_sec - w0_.tv_sec) * 1000000000ll +
+                   (w1.tv_nsec - w0_.tv_nsec);
+  double per_tick = t1 > t0_ ? (double)wall / (double)(t1 - t0_) : 1.0;
+  auto ns = [&](long long v) { return std::llround((double)v * per_tick); };
+  g_totals[kBusy] += ns(sum_.busy);
+  g_totals[kWait] += ns(sum_.wait);
+  g_totals[kThreadWall] += nthreads_ * wall;
+  for (int i = 0; i < kStages; ++i) g_totals[kStage0 + i] += ns(sum_.stage[i]);
+  g_totals[kFrames] += 1;
+}
+}  // namespace trace
 }  // namespace hevctpu
 
 namespace hevctpu {
@@ -1161,7 +1134,7 @@ void CtuEngine::set_cu_qp(int x0, int y0) {
 }
 
 void CtuEngine::encode_ctu(int cx, int cy, const MutCtuData& d) {
-  ProfScope _pw(10);  // whole-CTU envelope (profiler bookkeeping only)
+  trace::Ctu _trace;  // busy time, split by the stages opened below
   if (est_enc_ && sequential_)
     est_ctx_ = est_enc_->contexts();  // true states at this CTU
   // per-CTU quantization state (always set: thread-local, and a worker
@@ -1223,7 +1196,6 @@ void CtuEngine::encode_ctu(int cx, int cy, const MutCtuData& d) {
                 inter_cu64_try(ctu_x0, ctu_y0, d, ctu_x0, ctu_y0);
   if (!done64) rec.walk(ctu_x0, ctu_y0, ilog2(ctu_), 0, ep_.cu_depth_target);
   if (est_enc_ && sequential_) {
-    ProfScope _pe(11);
     // replay the committed CTU through the shadow coder so est_ctx_
     // tracks the real pass (SAO params are not final yet — only the SAO
     // contexts drift, which no estimate reads)
@@ -1291,7 +1263,7 @@ int CtuEngine::intra_try_list(int x0, int y0, int log2, const int cand[3],
 }
 
 int64_t CtuEngine::intra_screen_cost(int x0, int y0, int log2) {
-  ProfScope _ps(0);
+  trace::Stage _st(trace::kIntra);
   int n = 1 << log2;
   int32_t f[4 * 32 + 1], ff[4 * 32 + 1];
   static const bool oref = getenv("HEVC_TPU_SCREEN_OREF") != nullptr;
@@ -1510,6 +1482,7 @@ double CtuEngine::intra_cu_decide(int x0, int y0, int log2,
                                   const MutCtuData& d, int ctu_x0,
                                   int ctu_y0, int64_t whole_hint) {
   (void)whole_hint;  // superseded by the exact split trial below
+  trace::Stage _st(trace::kIntra);
   set_cu_qp(x0, y0);
   int bw4 = ctu_ / 4;
   double lam_sq = sqrt_lam_ * sqrt_lam_;
@@ -1626,6 +1599,9 @@ double CtuEngine::intra_cu_decide(int x0, int y0, int log2,
 double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
                                   const MutCtuData& d, int ctu_x0,
                                   int ctu_y0) {
+  // mode trials (luma SATD, exact RD, chroma, NxN); TB coding below is
+  // the residual stage
+  trace::Stage _st(trace::kIntra);
   set_cu_qp(x0, y0);
   int n = 1 << log2;
   int bw4 = ctu_ / 4;
@@ -1653,7 +1629,6 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
   int64_t top_costs[8];
   int ntop = 0;
   {
-    ProfScope _pm(1);
     for (int mi = 0; mi < nm; ++mi) {
       int mode = modes_try[mi];
       const int32_t* fsel = dsp::intra_filter_flag(mode, n, true) ? ff : f;
@@ -1691,7 +1666,6 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
          top_costs[ntop - 1] > top_costs[0] + (top_costs[0] >> 3))
     --ntop;
   if (ntop > 1 && !getenv("HEVC_TPU_NO_MODE_RD")) {
-    ProfScope _pmrd(18);
     double lam_rd = sqrt_lam_ * sqrt_lam_;
     const int32_t* smat_t =
         scaling_matrix(n, 0, true);
@@ -1753,7 +1727,6 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
   // mode from the same recon references twice)
   int32_t best_pred_cb[32 * 32], best_pred_cr[32 * 32];
   auto decide_chroma = [&](int dm) -> int {
-    ProfScope _pc(2);
     int winner = dm;
     int32_t fcb[4 * 32 + 1], ffcb[4 * 32 + 1];
     int32_t fcr[4 * 32 + 1], ffcr[4 * 32 + 1];
@@ -1834,14 +1807,13 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
   // predicting from the live recon; returns nz, accumulates sse/bits
   auto code_tb_i = [&](int c, int tx, int ty, int tn, int mode,
                        double* sse, double* bits) -> int {
-    ProfScope _pt(3);
+    trace::Stage _st(trace::kResidual);
     int stride = c == 0 ? w_ : cw;
     int ph = c == 0 ? h_ : ch;
     int px = c == 0 ? tx : tx >> csx_;
     int py = c == 0 ? ty : ty >> csx_;
     int tz = c == 0 ? tn : tn >> csx_;
     int qp = c == 0 ? qp_y_ : qp_c_[c - 1];
-    ProfScope* _pp = new ProfScope(7);
     // CU-level TB of the decided mode: the mode-trial loops above
     // already predicted exactly this block from the same (unmodified)
     // recon references — reuse instead of rebuild+repredict
@@ -1870,7 +1842,6 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
     for (int i = 0; i < tz; ++i)
       for (int j = 0; j < tz; ++j)
         resi[i * tz + j] = (int32_t)o[i * stride + j] - predt[i * tz + j];
-    delete _pp;
     // cross-component prediction of this chroma TB from the TU's luma
     // recon residual: HM's least-squares alpha, quantized to
     // {0,+-1,+-2,+-4,+-8} (TEncSearch.cpp:1874), subtracted before the
@@ -1906,32 +1877,22 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
     const int32_t* smat_t =
         scaling_matrix(tz, c, true);
     int nz;
-    {
-      ProfScope _px(4);
-      dsp::fwd_xform(resi, tz, bd_, dstt, coef);
-    }
-    {
-      ProfScope _pq(5);
-      nz = quant_levels(coef, tz, qp, true, lev, smat_t, c,
-                        engine_scan_idx(ilog2(tz), c, true, mode,
-                                        csx_ == 0),
-                        lam_sq, true);
-    }
+    dsp::fwd_xform(resi, tz, bd_, dstt, coef);
+    nz = quant_levels(coef, tz, qp, true, lev, smat_t, c,
+                      engine_scan_idx(ilog2(tz), c, true, mode, csx_ == 0),
+                      lam_sq, true);
     if (nz && sp_.sign_hiding) {
-      ProfScope _p12(12);
       sbh_enforce(lev, coef, tz, qp, bd_,
                   engine_scan_idx(ilog2(tz), c, true, mode, csx_ == 0),
                   smat_t);
     }
     if (nz) {
-      ProfScope _pi(8);
       dsp::dequant(lev, tz, qp, bd_, deq, smat_t);
       dsp::inv_xform(deq, tz, bd_, dstt, rres);
     } else {
       std::memset(rres, 0, sizeof(int32_t) * tz * tz);
     }
     if (sp_.transform_skip_enabled && tz == 4) {
-      ProfScope _ps2(9);
       int slot = (((ty - y0) >> 2) & 7) * 8 + (((tx - x0) >> 2) & 7);
       uint8_t bit = c == 0 ? TS_Y : (c == 1 ? TS_CB : TS_CR);
       ts_loc[slot] &= (uint8_t)~bit;
@@ -1939,7 +1900,7 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
                    engine_scan_idx(2, c, true, mode, csx_ == 0), c, lev,
                    rres, &nz))
         ts_loc[slot] |= bit;
-    }  // (_ps2 ends with the enclosing if-block scope)
+    }
     // context-exact TB rate (cbf bin + CABAC-counter residual bits) — the
     // same pricing the inter path uses; a static per-level model
     // undercounts the sig-map cost of scattered small coefficients and
@@ -1948,13 +1909,11 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
                              : est_ctx_.cbf_chroma[0],
                       nz != 0);
     if (nz) {
-      ProfScope _pr(6);
       *bits += tb_rate_bits(est_ctx_, lev, tz, ilog2(tz), c,
                             engine_scan_idx(ilog2(tz), c, true, mode,
                                             csx_ == 0),
                             sp_.sign_hiding);
     }
-    ProfScope _p16(16);
     if (ccp_on && c == 0) {
       // stash this TU's luma recon residual for the chroma TBs
       ccp_lnz = nz;
@@ -1987,7 +1946,6 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
     std::vector<int8_t> acb, acr;           // CCP alpha map snapshots
   };
   auto take = [&](int tx, int ty, int tn, Snap& s) {
-    ProfScope _p17(17);
     int tc = tn >> csx_;
     int px = tx >> csx_, py = ty >> csx_;
     if (ccp_on) {
@@ -2029,7 +1987,6 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
     }
   };
   auto put = [&](int tx, int ty, int tn, const Snap& s) {
-    ProfScope _p17(17);
     int tc = tn >> csx_;
     int px = tx >> csx_, py = ty >> csx_;
     if (ccp_on && !s.acb.empty()) {
@@ -2061,6 +2018,7 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
   };
   std::function<int(int, int, int, int, double*)> code_r =
       [&](int tx, int ty, int tn, int td, double* cost) -> int {
+    trace::Stage _st(trace::kResidual);
     bool owns_chroma = tn > 4 || csx_ == 0;
     bool can_split = tn > 4 && td < sp_.max_tu_depth_intra &&
                      (tn >> 1) >= (1 << sp_.min_tb_log2);
@@ -2070,8 +2028,8 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
     // parent, so their screen costs are systematically optimistic —
     // when even the flattered children sum fails to undercut the whole
     // block's screen cost by the margin, the exact split trial cannot
-    // win and is skipped (98% of trials lose at QP32; measured via
-    // HEVC_TPU_TUSPLIT_DUMP). HEVC_TPU_TUSPLIT_GATE=off restores the
+    // win and is skipped (98% of trials lose at QP32, by a dump of every
+    // trial). HEVC_TPU_TUSPLIT_GATE=off restores the
     // exhaustive trial (reference TEncSearch::xRecurIntraCodingLumaQT
     // trials whole and split unconditionally, TEncSearch.cpp:1244).
     if (can_split && tusplit_margin_ > 0) {
@@ -2103,23 +2061,6 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
       nzA += code_tb_i(2, tx, ty, tn, cmode_best, &sseA, &bitsA);
     }
     double costA = sseA + lam_sq * bitsA;
-    if (g_eprof.on) {  // split-trial statistics (slot 18=trials 19=wins)
-      g_eprof.ns[18] += can_split && nzA > 0;
-    }
-    static const bool dump_trials = getenv("HEVC_TPU_TUSPLIT_DUMP") != nullptr;
-    double qmax = 0;
-    if (can_split && nzA > 0 && dump_trials) {
-      // per-quadrant SSE of the whole-TB recon (feature candidates)
-      int hh = tn >> 1;
-      double qsse[4] = {0, 0, 0, 0};
-      for (int i = 0; i < tn; ++i)
-        for (int j = 0; j < tn; ++j) {
-          double e = (double)orig_[0][(ty + i) * w_ + tx + j] -
-                     recon_[0][(ty + i) * w_ + tx + j];
-          qsse[(i >= hh) * 2 + (j >= hh)] += e * e;
-        }
-      for (double q : qsse) qmax = std::max(qmax, q);
-    }
     if (can_split && nzA > 0) {
       Snap resA;
       take(tx, ty, tn, resA);
@@ -2147,14 +2088,7 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
         nzB += code_tb_i(2, tx, ty, tn, cmode_best, &sseC, &bitsC);
         costB += sseC + lam_sq * bitsC;
       }
-      if (dump_trials)
-        fprintf(stderr,
-                "TUSPLIT tn=%d td=%d nzA=%d sseA=%.0f bitsA=%.1f "
-                "costA=%.0f costB=%.0f qmax=%.0f lam=%.2f win=%d\n",
-                tn, td, nzA, sseA, bitsA, costA, costB, qmax, lam_sq,
-                costB < costA);
       if (costB < costA) {
-        if (g_eprof.on) g_eprof.ns[19] += 1;
         *cost = costB;
         return nzB;
       }
@@ -2187,7 +2121,6 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
   // flat blocks cannot repay 4 mode signallings: only trial NxN when
   // the committed 2Nx2N J exceeds the extra-signalling floor
   if (try_nxn && cost0 > lam_sq * 24.0) {
-    ProfScope _pnxn(20);
     // committed 2Nx2N state (to restore if NxN loses)
     Snap s2n;
     take(x0, y0, n, s2n);
@@ -2383,7 +2316,9 @@ int64_t CtuEngine::quad_screen_satd(int qx, int qy, int hn, int qmx,
 
 bool CtuEngine::inter_cu64_try(int x0, int y0, const MutCtuData& d,
                                int ctu_x0, int ctu_y0) {
-  PhaseSwitcher _ph(16);  // 16 = cu64 screen, 17 = cu64 residual commit
+  // quadrant screen and median AMVP: inter search; the merge list:
+  // merge; the commit: residual
+  trace::Stage _ph(trace::kInterSearch);
   int n = ctu_;
   int log2 = ilog2(ctu_);
   int pad = ep_.pad;
@@ -2428,6 +2363,7 @@ bool CtuEngine::inter_cu64_try(int x0, int y0, const MutCtuData& d,
   }
 
   // 64x64 candidates: merge list + median-MV AMVP
+  _ph.to(trace::kMerge);
   MotionInfo cands[5];
   int ncand = senc_->maps().merge_candidates(x0, y0, n, n, cands);
   int64_t best = -1;
@@ -2461,6 +2397,7 @@ bool CtuEngine::inter_cu64_try(int x0, int y0, const MutCtuData& d,
       std::memcpy(best_pred, pred, sizeof(int32_t) * n * n);
     }
   }
+  _ph.to(trace::kInterSearch);
   // median-of-quadrants AMVP candidate (GPUModeME: the table's own
   // 64x64 2Nx2N argmin — the MV the reference's lookup serves to the
   // depth-0 2Nx2N PU)
@@ -2491,7 +2428,7 @@ bool CtuEngine::inter_cu64_try(int x0, int y0, const MutCtuData& d,
     std::memcpy(best_pred, pred, sizeof(int32_t) * n * n);
   }
   if (best >= split_cost) return false;
-  _ph.to(17);
+  _ph.to(trace::kResidual);
 
   // ---- commit 64x64 CU: residual as four 32x32 luma TBs (implicit RQT
   // split, spec 7.3.8.8) + per-quadrant 16x16 chroma TBs ----
@@ -2523,19 +2460,12 @@ bool CtuEngine::inter_cu64_try(int x0, int y0, const MutCtuData& d,
       std::memset(lev, 0, sizeof(int32_t) * sz * sz);
       std::memset(rres, 0, sizeof(int32_t) * sz * sz);
     } else {
-      {
-        ProfScope _p19(19);
-        dsp::fwd_xform(resi, sz, bd_, false, coef);
-      }
-      {
-        ProfScope _p18(18);
-        nz = quant_levels(coef, sz, qp, false, lev, smat_p, c_idx, 0,
-                          lam_c, true);
-      }
+      dsp::fwd_xform(resi, sz, bd_, false, coef);
+      nz = quant_levels(coef, sz, qp, false, lev, smat_p, c_idx, 0, lam_c,
+                        true);
       if (nz && sp_.sign_hiding)
         sbh_enforce(lev, coef, sz, qp, bd_, 0, smat_p);
       if (nz) {
-        ProfScope _p8(8);
         dsp::dequant(lev, sz, qp, bd_, deq, smat_p);
         dsp::inv_xform(deq, sz, bd_, false, rres);
       } else {
@@ -2544,16 +2474,11 @@ bool CtuEngine::inter_cu64_try(int x0, int y0, const MutCtuData& d,
     }
     bits_coded += ctx_rate(c_idx == 0 ? est_ctx_.cbf_luma[0]
                                       : est_ctx_.cbf_chroma[1], nz != 0);
-    int64_t isse;
-    {
-      ProfScope _p20(20);
-      isse = dsp::tb_writeback(lev, sz, lv_out, lv_stride, p, pstride,
-                               rres, nullptr, o, ostride, rec, rstride,
-                               maxv);
-    }
+    int64_t isse = dsp::tb_writeback(lev, sz, lv_out, lv_stride, p, pstride,
+                                     rres, nullptr, o, ostride, rec,
+                                     rstride, maxv);
     sse_coded += (double)isse * dw;
     if (nz) {
-      ProfScope _p21(21);
       bits_coded += tb_rate_bits(est_ctx_, lev, sz, ilog2(sz), c_idx, 0,
                                  sp_.sign_hiding);
     }
@@ -2574,7 +2499,6 @@ bool CtuEngine::inter_cu64_try(int x0, int y0, const MutCtuData& d,
     int l = sel.ref[0] >= 0 ? 0 : 1;
     MotionInfo csel = clip_mi(sp_, sel, x0, y0);
     {
-      ProfScope _p7(7);
       if (sel.ref[0] >= 0 && sel.ref[1] >= 0)
         mc_bi(sp_, rp(0, sel.ref[0], ci), rp(1, sel.ref[1], ci), rwc,
               pad, csel.mvx[0], csel.mvy[0], csel.mvx[1],
@@ -2600,7 +2524,6 @@ bool CtuEngine::inter_cu64_try(int x0, int y0, const MutCtuData& d,
   // no-residual candidate, at depth 0): bare merge prediction vs the
   // coded CU by exact J
   if (best_idx >= 0 && nz_total > 0) {
-    ProfScope _p20(20);
     int64_t isse_skip = dsp::sse_pred(oy, w_, best_pred, n, n, n);
     const pel_t* ocb = orig_[1] + (y0 >> 1) * cw + (x0 >> 1);
     const pel_t* ocr = orig_[2] + (y0 >> 1) * cw + (x0 >> 1);
@@ -2675,7 +2598,7 @@ double CtuEngine::encode_cu_inter(int x0, int y0, int log2, const MutCtuData& d,
   int rwc = w_ / 2 + 2 * pad; // padded chroma stride
 
   int32_t pred[32 * 32];
-  PhaseSwitcher _ph(12);
+  trace::Stage _ph(trace::kMerge);
 
   // ---- merge candidates ----
   // Besides the SATD-ranked coded-merge pick, every candidate is scored
@@ -2768,7 +2691,7 @@ double CtuEngine::encode_cu_inter(int x0, int y0, int log2, const MutCtuData& d,
     }
   }
 
-  _ph.to(13);
+  _ph.to(trace::kInterSearch);
   // ---- AMVP: per-refIdx TPU integer MV + fractional refinement
   // (reference TEncSearch::predInterSearch's per-refIdx loop,
   // TEncSearch.cpp:3027; ref_idx signalling bits included in the cost) ----
@@ -3085,7 +3008,7 @@ double CtuEngine::encode_cu_inter(int x0, int y0, int log2, const MutCtuData& d,
     }
   }
 
-  _ph.to(14);
+  _ph.to(trace::kIntra);
   // ---- intra screen ----
   int32_t f[4 * 32 + 1], ff[4 * 32 + 1];
   build_refs(recon_[0], w_, h_, w_, x0, y0, n, x0, y0, 1, f);
@@ -3129,6 +3052,7 @@ double CtuEngine::encode_cu_inter(int x0, int y0, int log2, const MutCtuData& d,
   int64_t cost_intra = icost + (int64_t)(sqrt_lam_ * 8);
   cost_intra += cost_intra >> 3;  // +12.5%
   if (getenv("HEVC_TPU_NO_INTRA_IN_P")) cost_intra = INT64_MAX / 2;
+  _ph.to(trace::kInterSearch);
 
   // split screen (quadrants at their own device MVs + overhead; ref 0
   // screens the split — the recursive path re-searches all refs). At
@@ -3294,13 +3218,9 @@ double CtuEngine::encode_cu_inter(int x0, int y0, int log2, const MutCtuData& d,
                std::min(best_rect, std::min(cost_l1, cost_bi)));
   int64_t best = std::min(best_inter, cost_split);
   bool intra_only = best >= INT64_MAX / 4;  // no inter option at all
-  if (getenv("HEVC_TPU_DBG_BI"))
-    fprintf(stderr,
-            "CU %d %d n=%d merge=%lld inter=%lld l1=%lld bi=%lld "
-            "intra=%lld split=%lld rect=%lld\n",
-            x0, y0, n, (long long)m_cost, (long long)cost_inter,
-            (long long)cost_l1, (long long)cost_bi, (long long)cost_intra,
-            (long long)cost_split, (long long)best_rect);
+  // the choice between the candidates and the exact split trial (whose
+  // subtree opens its own stages)
+  _ph.to(trace::kOther);
   // ---- exact CU-split trial (reference TEncCu::xCompressCU depth
   // recursion): the SATD screen's pre-quantization view over-splits
   // smooth content (same failure the intra path had), so whenever the
@@ -3448,7 +3368,7 @@ double CtuEngine::encode_cu_inter(int x0, int y0, int log2, const MutCtuData& d,
     pred_y = i_pred;
   }
 
-  _ph.to(15);
+  _ph.to(trace::kResidual);
   // ---- residual (TU == CU unless the RQT split wins) ----
   if (!part_sel) {
     MotionInfo csel = clip_mi(sp_, sel, x0, y0);
@@ -3690,6 +3610,7 @@ double CtuEngine::encode_cu_inter(int x0, int y0, int log2, const MutCtuData& d,
   }
   if (!getenv("HEVC_TPU_NO_INTRA_TRIAL") &&
       cost_intra < INT64_MAX / 4) {
+    trace::Stage _it(trace::kIntra);
     double j_intra = 0;
     double ibits = 6.0 + mode_bits(iscr_mode, cand3);
     int32_t it_resi[32 * 32], it_coef[32 * 32], it_deq[32 * 32],

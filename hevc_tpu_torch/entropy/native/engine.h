@@ -12,14 +12,162 @@
 // one implementation, and fills the per-CTU decision buffers the existing
 // CABAC syntax writer consumes unchanged.
 #pragma once
+#include <atomic>
 #include <cstdint>
+#include <ctime>
 #include <memory>
+#include <mutex>
 #include <vector>
+#if defined(__x86_64__)
+#include <x86intrin.h>
+#endif
 
 #include "dsp.h"
 #include "syntax.h"
 
 namespace hevctpu {
+
+// ---- The engine's trace counters ------------------------------------------
+// Switched at run time (hevc_engine_trace, api.cpp) and read back by
+// hevc_engine_trace_stats. While on, every thread that encodes CTUs sums
+// the wall time of its encode_ctu calls (busy) into disjoint RD stages —
+// the innermost open Stage owns the time, what no Stage claims goes to
+// kOther — and the time it waits on the CTU row above. The sums live in
+// thread-local storage and reach the frame's totals once, when the
+// thread's Worker ends. Times are TSC ticks, scaled to nanoseconds per
+// frame against CLOCK_MONOTONIC (Frame). Off, a scope costs one branch.
+namespace trace {
+enum StageId { kIntra, kMerge, kInterSearch, kResidual, kOther, kStages };
+struct Sums {
+  long long stage[kStages];
+  long long busy, wait;
+};
+struct Thread {
+  bool on = false;
+  int cur = kOther;
+  long long last = 0;
+  Sums s = {};
+};
+extern std::atomic<bool> g_on;
+extern thread_local Thread tl;
+// process-wide totals (ns, and a count of traced frames), in this order
+enum Total { kBusy, kWait, kThreadWall, kStage0, kFrames = kStage0 + kStages,
+             kTotals };
+void totals(long long* out);
+
+inline long long ticks() {
+#if defined(__x86_64__)
+  return (long long)__rdtsc();
+#else
+  timespec t;
+  clock_gettime(CLOCK_MONOTONIC, &t);
+  return t.tv_sec * 1000000000ll + t.tv_nsec;
+#endif
+}
+inline Thread* active() {
+  if (!g_on.load(std::memory_order_relaxed)) return nullptr;
+  Thread& t = tl;
+  return t.on ? &t : nullptr;
+}
+
+// Time from here to the end of the scope (or to the next `to`) belongs to
+// the stage given, less what Stages opened inside it take.
+class Stage {
+ public:
+  explicit Stage(int s) : t_(active()) {
+    if (!t_) return;
+    prev_ = t_->cur;
+    if (s != prev_) go(s);
+  }
+  void to(int s) {
+    if (t_ && s != t_->cur) go(s);
+  }
+  ~Stage() {
+    if (t_ && t_->cur != prev_) go(prev_);
+  }
+  Stage(const Stage&) = delete;
+  Stage& operator=(const Stage&) = delete;
+
+ private:
+  void go(int s) {
+    long long now = ticks();
+    t_->s.stage[t_->cur] += now - t_->last;
+    t_->last = now;
+    t_->cur = s;
+  }
+  Thread* t_;
+  int prev_ = kOther;
+};
+
+// encode_ctu's scope: busy time, which the stages split exactly.
+class Ctu {
+ public:
+  Ctu() : t_(active()) {
+    if (!t_) return;
+    t0_ = t_->last = ticks();
+    t_->cur = kOther;
+  }
+  ~Ctu() {
+    if (!t_) return;
+    long long now = ticks();
+    t_->s.stage[t_->cur] += now - t_->last;
+    t_->s.busy += now - t0_;
+  }
+
+ private:
+  Thread* t_;
+  long long t0_ = 0;
+};
+
+// A wait on the row above, from the first failed check until it passes.
+class Wait {
+ public:
+  Wait() : t_(active()), t0_(t_ ? ticks() : 0) {}
+  ~Wait() {
+    if (t_) t_->s.wait += ticks() - t0_;
+  }
+
+ private:
+  Thread* t_;
+  long long t0_;
+};
+
+// One engine frame call: the switch as it stood at the call's start, its
+// clock, and the sum of its threads' counters, added to the process-wide
+// totals when it ends.
+class Frame {
+ public:
+  explicit Frame(int nthreads);
+  ~Frame();
+  bool on() const { return on_; }
+  void add(const Sums& s);
+
+ private:
+  bool on_;
+  int nthreads_;
+  timespec w0_;
+  long long t0_ = 0;
+  Sums sum_ = {};
+  std::mutex mu_;
+};
+
+// A thread's part of a frame: counts while it lives, hands its sums to the
+// frame once at its end.
+class Worker {
+ public:
+  explicit Worker(Frame& f) : f_(f) {
+    tl = Thread();
+    tl.on = f.on();
+  }
+  ~Worker() {
+    if (tl.on) f_.add(tl.s);
+    tl.on = false;
+  }
+
+ private:
+  Frame& f_;
+};
+}  // namespace trace
 
 struct EngineParams {
   int32_t pad;               // reference plane padding (samples)

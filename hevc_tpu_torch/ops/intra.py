@@ -24,6 +24,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import runtime
 from ..core import tables
 from ..core.types import IntraMode
 
@@ -98,9 +99,9 @@ def _angular_tables_dev(size: int, is_luma: bool, device: torch.device):
     """The angular gather tables on the device (flattened idx1, idx2 as
     int64; frac int32 [33, N, N]), uploaded once per size and device."""
     idx1, idx2, frac = _angular_tables(size, is_luma)
-    return (torch.from_numpy(idx1.reshape(-1).astype(np.int64)).to(device),
-            torch.from_numpy(idx2.reshape(-1).astype(np.int64)).to(device),
-            torch.from_numpy(frac).to(device))
+    return (runtime.upload(idx1.reshape(-1).astype(np.int64), device),
+            runtime.upload(idx2.reshape(-1).astype(np.int64), device),
+            runtime.upload(frac, device))
 
 
 def predict_all_modes(ref_unfilt: torch.Tensor, ref_filt: torch.Tensor, *,

@@ -27,6 +27,8 @@ import time
 import numpy as np
 import torch
 
+from .utils.timing import timers
+
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -206,8 +208,12 @@ def require(t: torch.Tensor, dtype: torch.dtype, name: str,
 
 def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> tensor on the device (a copy on both devices, so the
-    caller may reuse its array)."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
+    caller may reuse its array). Every host-to-device copy of the encode
+    path goes through here; the `h2d_bytes` counter of utils.timing sums
+    their sizes."""
+    a = np.ascontiguousarray(a)
+    timers.add("h2d_bytes", a.nbytes)
+    return torch.from_numpy(a).to(device, copy=True)
 
 
 class Readback:

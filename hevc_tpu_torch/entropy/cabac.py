@@ -837,13 +837,16 @@ class _MapsView:
 
 
 # the engine's trace totals (hevc_engine_trace_stats), in its order: the
-# seconds its threads spent inside encode_ctu (busy), waiting on the CTU
-# row above (wait), threads x the frame calls' wall time, and busy split
-# into the RD stages; then the number of traced frame calls
+# seconds its threads spent inside encode_ctu (busy), waiting for a CTU
+# ready to code (wait), threads x the frame calls' wall time, and busy
+# split into the RD stages; then the counts of ENGINE_TRACE_COUNTS: traced
+# frame calls, and CTU rows that changed hands on the wavefront
 ENGINE_TRACE_KEYS = ("engine_busy_s", "engine_wait_s", "engine_thread_wall_s",
                      "engine_intra_s", "engine_merge_s",
                      "engine_inter_search_s", "engine_residual_s",
-                     "engine_other_s", "engine_traced_frames")
+                     "engine_other_s", "engine_traced_frames",
+                     "engine_row_switches")
+ENGINE_TRACE_COUNTS = 2
 
 
 def engine_frame_stats(pel32: bool = False) -> dict:
@@ -859,9 +862,8 @@ def engine_frame_stats(pel32: bool = False) -> dict:
     tot = (ctypes.c_longlong * n)()
     if lib.hevc_engine_trace_stats(tot, n) != n:
         raise RuntimeError("hevc_engine_trace_stats: unexpected layout")
-    for i, k in enumerate(ENGINE_TRACE_KEYS[:-1]):
-        out[k] = tot[i] / 1e9
-    out[ENGINE_TRACE_KEYS[-1]] = tot[n - 1]
+    for i, k in enumerate(ENGINE_TRACE_KEYS):
+        out[k] = tot[i] if i >= n - ENGINE_TRACE_COUNTS else tot[i] / 1e9
     return out
 
 

@@ -74,7 +74,8 @@ void hevc_engine_trace(int on) { hevctpu::trace::g_on.store(on != 0); }
 
 // Their process-wide totals, trace::kTotals of them in trace::Total order:
 // ns of busy, wait, threads x wall, intra, merge, inter search, residual,
-// other; then the number of traced frame calls.
+// other; then the number of traced frame calls and of CTU rows that changed
+// hands on the wavefront.
 int hevc_engine_trace_stats(long long* out, int n) {
   if (n < hevctpu::trace::kTotals) return -1;
   hevctpu::trace::totals(out);
@@ -412,8 +413,13 @@ struct StackedMaps {
 // above-right neighbourhood every tool reads). Decisions and recon writes
 // land in disjoint regions, so the lag-2 wavefront is race-free — the
 // same dependency structure the reference exploits for WPP
-// (TEncSlice.cpp:744). Thread count from HEVC_TPU_THREADS (default:
-// hardware concurrency, capped by row count).
+// (TEncSlice.cpp:744). The unit of work is the ready CTU, not the row: a
+// free worker claims the lowest row whose next CTU is ready and codes
+// along it while the next one stays ready, then lets the row go and looks
+// again, so no worker sleeps on a blocked row while a lower row waits for
+// one. A row's next holder acquires its claim flag after the last holder
+// released it, so it sees everything that holder wrote. Thread count from
+// HEVC_TPU_THREADS (default: hardware concurrency, capped by row count).
 extern "C" void hevc_engine_frame(void* eng, int ctus_w, int ctus_h,
                                   int ctu_size, int cfmt, STACKED_ARGS) {
   STACKED_INIT(ctu_size, cfmt);
@@ -444,42 +450,92 @@ extern "C" void hevc_engine_frame(void* eng, int ctus_w, int ctus_h,
                                       sm.at((size_t)cy * ctus_w + cx));
     return;
   }
-  std::vector<std::atomic<int>> done(ctus_h);  // CTUs finished per row
-  for (auto& a : done) a.store(0);
-  std::atomic<int> next_row{0};
-  auto worker = [&]() {
+  std::vector<std::atomic<int>> done(ctus_h);     // CTUs finished per row
+  std::vector<std::atomic<bool>> held(ctus_h);    // a worker codes the row
+  std::vector<int> holder(ctus_h, -1);  // its last holder (read under claim)
+  for (int cy = 0; cy < ctus_h; ++cy) {
+    done[cy].store(0);
+    held[cy].store(false);
+  }
+  std::atomic<int> rows_left{ctus_h};
+  std::atomic<int> workers{nthreads};
+  // bumped after every change that can make a row claimable (a CTU done, a
+  // row let go); idle workers sleep on it. Such a change makes at most one
+  // row claimable beyond the one its own worker looks for next, so it wakes
+  // one sleeper, not all (a wake-up of every idle worker after every CTU
+  // costs more CPU than the CTUs themselves at 720p); the last row wakes
+  // all of them to leave
+  std::atomic<unsigned> progress{0};
+  auto bump = [&]() {
+    progress.fetch_add(1, std::memory_order_release);
+    if (rows_left.load(std::memory_order_acquire) > 0)
+      progress.notify_one();
+    else
+      progress.notify_all();
+  };
+  auto ready = [&](int cy, int cx) {
+    return cy == 0 || done[cy - 1].load(std::memory_order_acquire) >=
+                          std::min(cx + 2, ctus_w);
+  };
+  auto worker = [&](int me) {
     hevctpu::trace::Worker tw(trace_frame);
+    hevctpu::trace::Wait idle;
+    int spins = 0;
     for (;;) {
-      int cy = next_row.fetch_add(1);
-      if (cy >= ctus_h) return;
-      for (int cx = 0; cx < ctus_w; ++cx) {
-        if (cy > 0) {
-          int need = std::min(cx + 2, ctus_w);
-          int got = done[cy - 1].load(std::memory_order_acquire);
-          if (got < need) {
-            hevctpu::trace::Wait tw_wait;
-            // bounded spin, then futex sleep (atomic::wait) — yield-spin
-            // burns a vCPU and degrades badly on oversubscribed hosts
-            int spins = 0;
-            while (got < need) {
-              if (++spins < 64) {
-                std::this_thread::yield();
-              } else {
-                done[cy - 1].wait(got, std::memory_order_acquire);
-              }
-              got = done[cy - 1].load(std::memory_order_acquire);
-            }
-          }
-        }
+      unsigned seen = progress.load(std::memory_order_acquire);
+      if (rows_left.load(std::memory_order_acquire) == 0) return;
+      // the lowest unheld row whose next CTU is ready: claim it, then
+      // check again under the claim (its last holder may have moved on)
+      int cy = 0;
+      for (; cy < ctus_h; ++cy) {
+        int cx = done[cy].load(std::memory_order_acquire);
+        if (cx >= ctus_w || held[cy].load(std::memory_order_relaxed) ||
+            !ready(cy, cx))
+          continue;
+        if (held[cy].exchange(true, std::memory_order_acquire)) continue;
+        cx = done[cy].load(std::memory_order_relaxed);
+        if (cx < ctus_w && ready(cy, cx)) break;
+        held[cy].store(false, std::memory_order_release);
+        bump();
+      }
+      if (cy == ctus_h) {
+        // nothing to claim: with more workers than unfinished rows this one
+        // leaves (the picture's tail, the last row alone); else a bounded
+        // yield-spin, then a futex sleep until the next progress (yield-spin
+        // alone burns a vCPU and degrades badly on oversubscribed hosts)
+        int n = workers.load(std::memory_order_relaxed);
+        if (rows_left.load(std::memory_order_acquire) < n &&
+            workers.compare_exchange_strong(n, n - 1))
+          return;
+        idle.start();
+        if (++spins < 64)
+          std::this_thread::yield();
+        else
+          progress.wait(seen, std::memory_order_acquire);
+        continue;
+      }
+      idle.stop();
+      spins = 0;
+      if (holder[cy] >= 0 && holder[cy] != me) hevctpu::trace::row_switch();
+      holder[cy] = me;
+      for (int cx = done[cy].load(std::memory_order_relaxed);;) {
         ((CtuEngine*)eng)->encode_ctu(cx, cy,
                                       sm.at((size_t)cy * ctus_w + cx));
-        done[cy].store(cx + 1, std::memory_order_release);
-        done[cy].notify_all();
+        done[cy].store(++cx, std::memory_order_release);
+        bool more = cx < ctus_w && ready(cy, cx);
+        if (cx == ctus_w) {
+          rows_left.fetch_sub(1, std::memory_order_release);
+        } else if (!more) {  // blocked: let the row go
+          hevctpu::trace::row_switch();
+          held[cy].store(false, std::memory_order_release);
+        }
+        bump();
+        if (!more) break;
       }
     }
   };
   std::vector<std::thread> pool;
-  for (int t = 0; t < nthreads; ++t) pool.emplace_back(worker);
+  for (int t = 0; t < nthreads; ++t) pool.emplace_back(worker, t);
   for (auto& t : pool) t.join();
 }
 

@@ -38,6 +38,7 @@ void Frame::add(const Sums& s) {
   for (int i = 0; i < kStages; ++i) sum_.stage[i] += s.stage[i];
   sum_.busy += s.busy;
   sum_.wait += s.wait;
+  sum_.row_switches += s.row_switches;
 }
 
 Frame::~Frame() {
@@ -56,6 +57,7 @@ Frame::~Frame() {
   g_totals[kThreadWall] += nthreads_ * wall;
   for (int i = 0; i < kStages; ++i) g_totals[kStage0 + i] += ns(sum_.stage[i]);
   g_totals[kFrames] += 1;
+  g_totals[kRowSwitches] += sum_.row_switches;
 }
 }  // namespace trace
 }  // namespace hevctpu

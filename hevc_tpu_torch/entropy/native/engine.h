@@ -32,15 +32,17 @@ namespace hevctpu {
 // hevc_engine_trace_stats. While on, every thread that encodes CTUs sums
 // the wall time of its encode_ctu calls (busy) into disjoint RD stages —
 // the innermost open Stage owns the time, what no Stage claims goes to
-// kOther — and the time it waits on the CTU row above. The sums live in
-// thread-local storage and reach the frame's totals once, when the
-// thread's Worker ends. Times are TSC ticks, scaled to nanoseconds per
-// frame against CLOCK_MONOTONIC (Frame). Off, a scope costs one branch.
+// kOther — the time it waits for a CTU that is ready to code, and the
+// times a CTU row changes hands. The sums live in thread-local storage and
+// reach the frame's totals once, when the thread's Worker ends. Times are
+// TSC ticks, scaled to nanoseconds per frame against CLOCK_MONOTONIC
+// (Frame). Off, a scope costs one branch.
 namespace trace {
 enum StageId { kIntra, kMerge, kInterSearch, kResidual, kOther, kStages };
 struct Sums {
   long long stage[kStages];
   long long busy, wait;
+  long long row_switches;  // a count, not ticks
 };
 struct Thread {
   bool on = false;
@@ -50,9 +52,10 @@ struct Thread {
 };
 extern std::atomic<bool> g_on;
 extern thread_local Thread tl;
-// process-wide totals (ns, and a count of traced frames), in this order
+// process-wide totals (ns; then counts: traced frames, row switches), in
+// this order
 enum Total { kBusy, kWait, kThreadWall, kStage0, kFrames = kStage0 + kStages,
-             kTotals };
+             kRowSwitches, kTotals };
 void totals(long long* out);
 
 inline long long ticks() {
@@ -119,18 +122,29 @@ class Ctu {
   long long t0_ = 0;
 };
 
-// A wait on the row above, from the first failed check until it passes.
+// A worker's wait for work: from a search that finds no CTU ready to code
+// until the search that claims one. A wait that ends with the worker
+// leaving (more workers than unfinished rows) is not counted.
 class Wait {
  public:
-  Wait() : t_(active()), t0_(t_ ? ticks() : 0) {}
-  ~Wait() {
+  void start() {
+    if (!t_ && (t_ = active())) t0_ = ticks();
+  }
+  void stop() {
     if (t_) t_->s.wait += ticks() - t0_;
+    t_ = nullptr;
   }
 
  private:
-  Thread* t_;
-  long long t0_;
+  Thread* t_ = nullptr;
+  long long t0_ = 0;
 };
+
+// A CTU row released while its next CTU is blocked, or claimed after
+// another worker released it.
+inline void row_switch() {
+  if (Thread* t = active()) ++t->s.row_switches;
+}
 
 // One engine frame call: the switch as it stood at the call's start, its
 // clock, and the sum of its threads' counters, added to the process-wide

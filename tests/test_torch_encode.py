@@ -176,28 +176,35 @@ _THREADED_WORKER = r"""
 import sys
 sys.path[:0] = [sys.argv[1], sys.argv[1] + "/tests"]
 from hevc_tpu_torch.encoder.top import EncoderTop
+from hevc_tpu_torch.entropy.cabac import engine_frame_stats
 from hevc_tpu_torch.io.cfg import EncoderConfig, parse_cfg_file
+from hevc_tpu_torch.utils.timing import timers
 from test_torch_helpers import LDP_CFG, textured_frames
+w, h = int(sys.argv[2]), int(sys.argv[3])
 cfg = parse_cfg_file(LDP_CFG, EncoderConfig())
-cfg.width, cfg.height, cfg.frames_to_encode = 320, 256, 3
+cfg.width, cfg.height, cfg.frames_to_encode = w, h, 3
 cfg.search_range = 16
 enc = EncoderTop(cfg, device="cpu")
-frames = textured_frames(3, 320, 256)
+frames = textured_frames(3, w, h)
+timers.enabled = True  # the engine's counters: rows that changed hands
 out = b"".join(enc.encode_frame(f) for f in frames) + enc.flush()
 sys.stdout.buffer.write(out)
+sys.stderr.write("row_switches %d\n" % engine_frame_stats()["engine_row_switches"])
 """
 
 
-def _threaded_encode(nthreads):
-    """The worker above in a subprocess: a 320x256 encode whose four CTU
-    rows run on the native engine's lag-2 wavefront."""
+def _threaded_encode(nthreads, w=320, h=256):
+    """The worker above in a subprocess: a w x h encode of three pictures
+    on the native engine's lag-2 wavefront. Returns the stream and the
+    number of times a CTU row changed hands between workers."""
     env = dict(os.environ, HEVC_TPU_THREADS=str(nthreads),
                OMP_NUM_THREADS="1")
-    r = subprocess.run([sys.executable, "-c", _THREADED_WORKER, REPO],
+    r = subprocess.run([sys.executable, "-c", _THREADED_WORKER, REPO,
+                        str(w), str(h)],
                        env=env, capture_output=True, timeout=900)
     assert r.returncode == 0, r.stderr[-3000:].decode(errors="replace")
     assert len(r.stdout) > 1000
-    return r.stdout
+    return r.stdout, int(r.stderr.split()[-1])
 
 
 def test_wavefront_threads_deterministic():
@@ -206,7 +213,15 @@ def test_wavefront_threads_deterministic():
     scratch buffer they write must be per thread. (The inter-TB level
     buffer once was shared: a row could overwrite another's levels between
     quantization and copy-out, and the CU then kept a nonzero count with
-    all-zero levels and aborted in residual() on 640x360 and 1080p.)"""
-    ref = _threaded_encode(2)
-    assert _threaded_encode(4) == ref
-    assert _threaded_encode(4) == ref
+    all-zero levels and aborted in residual() on 640x360 and 1080p.)
+    At 640x384 (six CTU rows) fewer workers than rows take a row up where
+    another worker let it go, so a CTU's left neighbour may have been
+    coded by another thread; the stream stays the same at 2, 3, 4 and 8
+    threads (8 are capped at the six rows)."""
+    ref = _threaded_encode(2)[0]
+    assert _threaded_encode(4)[0] == ref
+    assert _threaded_encode(4)[0] == ref
+    ref, switches = _threaded_encode(2, 640, 384)
+    assert switches > 0
+    for n in (3, 4, 8):
+        assert _threaded_encode(n, 640, 384)[0] == ref

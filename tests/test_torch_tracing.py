@@ -101,6 +101,7 @@ def test_engine_stages_sum_to_busy_in_every_call(runs):
     for c in runs["off"][1]:
         assert c["engine_traced_frames"] == 0
         assert c["engine_busy_s"] == 0 and c["engine_wait_s"] == 0
+        assert c["engine_row_switches"] == 0
 
 
 def test_engine_busy_and_wait_within_threads_times_wall(runs):
@@ -110,7 +111,7 @@ def test_engine_busy_and_wait_within_threads_times_wall(runs):
             <= c["engine_thread_wall_s"] + 1e-9
         # four workers over the wall time of the frame call
         assert c["engine_thread_wall_s"] <= 4 * c["engine_wall_s"] + 1e-6
-    # four workers over four CTU rows wait on the rows above
+    # four workers over four CTU rows wait for ready CTUs
     assert sum(c["engine_wait_s"] for c in calls) > 0
 
 
@@ -224,7 +225,8 @@ TRACE_METRICS = (
     "engine_residual_ms_per_frame", "engine_other_ms_per_frame",
     "engine_host_ms_p90", "lookahead_ms_per_frame", "ref_prep_ms_per_frame",
     "frame_setup_ms_per_frame", "stream_write_ms_per_frame",
-    "me_lookahead_hit_share", "h2d_mb_per_frame")
+    "me_lookahead_hit_share", "h2d_mb_per_frame",
+    "engine_row_switches_per_frame")
 
 
 # one traced run of the harness on the CPU, in a process of its own (the

@@ -1,7 +1,8 @@
 """ThreadSanitizer run of the port's threaded CU engine (the `make tsan`
 build of hevc_tpu_torch/entropy/native, its runtime preloaded): a data
-race between the lag-2 wavefront rows (api.cpp hevc_engine_frame) aborts
-the subprocess (halt_on_error). The encode covers seven CTU rows of an
+race between the lag-2 wavefront rows (api.cpp hevc_engine_frame), or
+between two workers that hold one row in turn, aborts the subprocess
+(halt_on_error). The encode covers seven CTU rows of an
 inter picture with partial and split CTUs, where the shared inter level
 scratch (CtuEngine::lev_tmp_, per thread since the port's first slice)
 raced in 1080p encodes. Python, numpy and torch are not instrumented; the
@@ -48,19 +49,25 @@ sys.stdout.buffer.write(out)
 """
 
 
-@pytest.mark.parametrize("trace", [False, True], ids=["off", "traced"])
-def test_wavefront_under_tsan(trace):
-    """Eight wavefront threads over seven CTU rows under ThreadSanitizer
-    (halt_on_error): the encode must finish and write a stream. With the
-    level scratch shared again (a plain member of CtuEngine) this run
-    reports the race in encode_cu_inter and fails."""
+@pytest.mark.parametrize("trace,threads", [
+    pytest.param(False, 8, id="off"),
+    pytest.param(True, 8, id="traced"),
+    pytest.param(True, 2, id="traced-2threads")])
+def test_wavefront_under_tsan(trace, threads):
+    """Eight wavefront threads (capped at the seven CTU rows), or two that
+    hand rows to each other, under ThreadSanitizer (halt_on_error): the
+    encode must finish and write a stream. With two threads a row is let
+    go when its next CTU is blocked and taken up by the other worker, whose
+    CTUs then read what the first wrote. With the level scratch shared
+    again (a plain member of CtuEngine) this run reports the race in
+    encode_cu_inter and fails."""
     tsan_rt = subprocess.run(["g++", "-print-file-name=libtsan.so"],
                              capture_output=True, text=True).stdout.strip()
     if not os.path.isabs(tsan_rt):
         pytest.skip("libtsan runtime not available")
     cabac._build("tsan")
     env = dict(os.environ)
-    env["HEVC_TPU_THREADS"] = "8"
+    env["HEVC_TPU_THREADS"] = str(threads)
     env["HEVC_TPU_LIB"] = os.path.join(NATIVE, "libhevc_entropy_tsan.so")
     env["OMP_NUM_THREADS"] = "1"  # keep torch's own pool out of shot
     env["LD_PRELOAD"] = tsan_rt

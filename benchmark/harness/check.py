@@ -15,12 +15,14 @@ reference, and each has the limit 0:
                    reconstruction;
   search_mismatch  motion-vector entries of the sampled searches that
                    differ from the reference's, and reference planes
-                   whose padding differs from an edge extension; a run
-                   whose window checked no search counts one;
+                   whose padding differs from an edge extension; in a
+                   configuration with searches, a run whose window
+                   checked none counts one;
   screen_mismatch  candidate modes and best costs of the prescreens
-                   (the IDR's in set-up, every intra picture's in the
-                   window) that differ; a run that checked none counts
-                   one.
+                   (every one of set-up: the warm-up's mid-level plane,
+                   the IDR's and the warm-up pictures'; six sampled
+                   from the window's, as the searches are) that differ;
+                   a run that checked none counts one.
 A search or prescreen whose source picture is none of the pictures the
 benchmark made counts one as well."""
 from __future__ import annotations

@@ -9,7 +9,9 @@ drawn from the seed, whose references are the program's own
 reconstructions (the decoder cannot afford to rebuild every picture of
 a run; the hash check covers the others). Each reconstructed picture is compared sample by sample with
 the program's reconstruction and with the hash SEI the stream carries
-for it.
+for it. Pictures are matched by display index (`DecoderTop.index`), not
+by POC: a stream with many IDRs, such as all-intra, restarts its POC at
+each, and in a stream with one IDR the two are the same.
 
 `drop_bits` > 0 runs the control: the same decoder keeping every sample,
 its references' too, at that lower precision."""
@@ -24,8 +26,8 @@ from . import reference as ref
 
 
 def sample_pocs(seed: int, first: int, pictures: int, gop: int) -> list:
-    """The POCs of one GOP of the range [first, first + pictures), drawn
-    from the seed."""
+    """The display indices of one GOP of the range [first, first +
+    pictures), drawn from the seed."""
     n = max(1, pictures // gop)
     g = random.Random(seed * 1000003 + 41).randrange(n)
     start = first + g * gop
@@ -47,19 +49,19 @@ class _Sampled(DecoderTop):
         self.want = want
         self.decoded = {}
         self.hash_ok = {}
-        self._poc = None
+        self._last = None
 
     def _store(self, sh, recon):
         super()._store(sh, recon)
         self.out_buf.clear()
-        self._poc = sh.poc
-        if sh.poc not in self.given:
-            self.decoded[sh.poc] = recon
+        self._last = self.index(sh)
+        if self._last not in self.given:
+            self.decoded[self._last] = recon
 
     def _check_hash(self, planes, digests, hash_type):
         ok = super()._check_hash(planes, digests, hash_type)
-        if self._poc in self.decoded:
-            self.hash_ok[self._poc] = ok
+        if self._last in self.decoded:
+            self.hash_ok[self._last] = ok
             if len(self.hash_ok) == len(self.want):
                 raise _Done
         return ok
@@ -68,15 +70,16 @@ class _Sampled(DecoderTop):
 def check(data: bytes, recons: dict, src: dict, pocs: list,
           bit_depth: int, drop_bits: int = 0) -> dict:
     """Decode `data` (the whole stream from its parameter sets) up to the
-    last picture wanted, every picture parsed, the IDR and `pocs`
-    reconstructed.
+    last picture wanted, every picture parsed, the first IDR and `pocs`
+    (display indices, as every key here) reconstructed.
 
     Returns {"samples": samples that differ from the program's
     reconstruction (all of a picture that was not reconstructed),
     "hashes": reconstructed pictures whose hash SEI does not match them
-    (or that have none), "notes", "pocs", "psnr": {poc: luma PSNR of the
-    decoded picture against the source}, "shares": the reconstructed
-    P/B pictures' skip and merge shares of their 4x4 blocks}."""
+    (or that have none), "notes", "pocs": the pictures reconstructed,
+    "psnr": {display index: luma PSNR of the decoded picture against the
+    source}, "shares": the reconstructed P/B pictures' skip and merge
+    shares of their 4x4 blocks}."""
     want = sorted({0, *pocs})
     given = {i: p for i, p in recons.items() if i not in want}
     dec = _Sampled(given, want, drop_bits)

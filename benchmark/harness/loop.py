@@ -73,7 +73,7 @@ def _run(s, seed, seconds, trace, t_start, cfg, EncoderTop, timers, torch):
         return planes
 
     # set-up: the encoder, its device programs, and the warm-up pictures
-    s.capture.recording = True          # the IDR's prescreen is checked
+    s.capture.recording = True          # set-up's prescreens are checked
     enc = EncoderTop(cfg, device=s.device)
     enc.warm_device_programs()
     buf = deque([pull(), pull()])
@@ -114,7 +114,7 @@ def _run(s, seed, seconds, trace, t_start, cfg, EncoderTop, timers, torch):
         span = record_function(WINDOW_SPAN)
         span.__enter__()
         eng0 = engine_frame_stats(s.bit_depth > 14)
-    s.capture.recording = s.capture.searching = True
+    s.capture.window = True
     coded0 = len(enc.stats)
     chunks = []
     s.steps = []
@@ -131,7 +131,7 @@ def _run(s, seed, seconds, trace, t_start, cfg, EncoderTop, timers, torch):
     s.window_s = s.steps[-1] - t0
     s.t0 = t0
     s.pictures = len(enc.stats) - coded0
-    s.capture.recording = s.capture.searching = False
+    s.capture.window = False
     if trace:
         eng1 = engine_frame_stats(s.bit_depth > 14)
         span.__exit__(None, None, None)

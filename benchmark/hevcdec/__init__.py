@@ -9,6 +9,9 @@ Departures from the copied code: the device halves of `ops/quant.py`,
 are left out (the native filter is the one that runs); the native library is the one built in this directory
 (no library named by the environment, no sanitizer build); and
 `decoder.top.DecoderTop` takes `given` pictures (parsed for their syntax
-and motion, their samples taken as given, not reconstructed) and
-`drop_bits` (every sample kept at a lower precision).
+and motion, their samples taken as given, not reconstructed), keyed by
+display index (`DecoderTop.index`: the pictures finished before the
+current IDR or BLA plus the POC, so a stream with many IDRs, such as
+all-intra with every POC 0, keeps one key a picture), and `drop_bits`
+(every sample kept at a lower precision).
 """

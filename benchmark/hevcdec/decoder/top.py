@@ -44,8 +44,9 @@ class DecoderTop:
     def __init__(self, collect_stats: bool = False, conceal: bool = False,
                  given: Optional[Dict[int, List[np.ndarray]]] = None,
                  drop_bits: int = 0):
-        # given: {POC: planes} of pictures taken as they are (parsed for
-        # their syntax and motion, not reconstructed); drop_bits > 0
+        # given: {display index (see `index`): planes} of pictures taken
+        # as they are (parsed for their syntax and motion, not
+        # reconstructed); drop_bits > 0
         # keeps every sample with its drop_bits low bits cleared (a
         # decoder of lower sample precision)
         self.given = given or {}
@@ -68,6 +69,8 @@ class DecoderTop:
         self.dpb_motion: Dict[int, dict] = {}         # poc -> motion field
         self.out_buf: List[Tuple[int, int, List[np.ndarray]]] = []
         self.cvs = 0
+        self.stored = 0      # pictures finished so far
+        self.cvs_first = 0   # pictures finished before the current IDR/BLA
         self.hash_status: List[str] = []
         self.pic_structs = []  # pic_timing SEI per AU (field weaving)
         self._last_decoded = None
@@ -147,6 +150,7 @@ class DecoderTop:
                         self.dpb_lt = {}
                         self.dpb_motion = {}
                         self.cvs += 1
+                        self.cvs_first = self.stored
                     self._start_picture(sh)
                 try:
                     self._decode_slice_into(sh, rbsp, offset)
@@ -374,7 +378,7 @@ class DecoderTop:
             sdec.set_entry_points(raw_offs)
         w, h = sps.pic_width_in_luma_samples, sps.pic_height_in_luma_samples
         refs_l0 = refs_l1 = None
-        parse_only = sh.poc in self.given
+        parse_only = self.index(sh) in self.given
         if sh.slice_type != SliceType.I and not parse_only:
             def resolve(pocs, n):
                 out = []
@@ -502,9 +506,10 @@ class DecoderTop:
         if sps.sps_temporal_mvp_enabled_flag:
             self.dpb_motion[sh.poc] = cabac.motion_field(
                 decisions, sps, pic["ref_l0"], pic["ref_l1"], sh.poc)
-        if sh.poc in self.given:
+        idx = self.index(sh)
+        if idx in self.given:
             recon = [lower(np.array(p, recon[0].dtype), self.drop_bits)
-                     for p in self.given[sh.poc]]
+                     for p in self.given[idx]]
             self._store(sh, recon)
             return
         # cu_transquant_bypass samples are NOT modified by the in-loop
@@ -583,9 +588,16 @@ class DecoderTop:
                     (cx * n) >> sx:((cx + 1) * n) >> sx]
             blk[...] = lower(blk, self.drop_bits)
 
+    def index(self, sh) -> int:
+        """The picture's display index in the whole stream: the pictures
+        finished before the current IDR or BLA, plus its POC (the POC
+        itself in a stream with one IDR)."""
+        return self.cvs_first + sh.poc
+
     def _store(self, sh, recon) -> None:
         """The finished picture into the DPB and the output queue."""
         self._last_decoded = recon
+        self.stored += 1
         self.dpb[sh.poc] = recon
         # track prevTid0Poc (spec 8.3.1: TemporalId 0, not RASL/RADL/SLNR)
         if sh.temporal_id == 0 and sh.nal_unit_type not in (6, 7, 8, 9):

@@ -51,6 +51,27 @@ def tiny_bench(tmp_path):
     return str(dst)
 
 
+@pytest.fixture
+def tiny_intra(tiny_bench):
+    """(benchmark directory, cell) of a tiny all-intra cell that only the
+    copy knows: the port's all-intra Main cfg (an IDR with POC 0 every
+    picture), no searches, two warm-up pictures."""
+    import json
+    conf_dir = os.path.join(tiny_bench, "configs")
+    shutil.copy(os.path.join(ROOT, "hevc_tpu_torch", "cfg",
+                             "encoder_intra_main.cfg"),
+                os.path.join(conf_dir, "intra_main.cfg"))
+    with open(os.path.join(conf_dir, "ldp_main.json")) as fh:
+        conf = json.load(fh)
+    conf.update(name="intra_main", cfg="intra_main.cfg", warmup_pictures=2,
+                searches=False, about="all-intra Main, QP 32")
+    with open(os.path.join(conf_dir, "intra_main.json"), "w") as fh:
+        json.dump(conf, fh)
+    return tiny_bench, {"name": "intra_main.b1080_pan",
+                        "config": "intra_main",
+                        "traffic": "tiny.b1080_pan", "chips": 1}
+
+
 def tiny_cell(name: str) -> dict:
     from benchmark.harness import spec
     cell = dict(spec.cell(spec.benchmark(), name))

@@ -22,6 +22,22 @@ def test_control_fails_where_the_program_passes(cell, tiny_bench,
     assert all(v > 0 for v in r["control"].values()), r
 
 
+def test_control_fails_all_intra_where_the_program_passes(tiny_intra,
+                                                          one_thread):
+    """The same for a configuration that only the copy knows, all-intra
+    (every picture an IDR with POC 0): it has no searches, so the
+    control fails every other number."""
+    bench_dir, cell = tiny_intra
+    r = control.readings(cell, 2 ** 31 + 77, 0.5, device="cpu",
+                         bench_dir=bench_dir,
+                         overrides={"range_pictures": 4})
+    assert r["program"] == {"hash_mismatch": 0, "decode_mismatch": 0,
+                            "search_mismatch": 0, "screen_mismatch": 0}, r
+    assert r["control"]["search_mismatch"] == 0, r
+    assert all(v > 0 for k, v in r["control"].items()
+               if k != "search_mismatch"), r
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cell", ["ldp_main.b1080_pan",
                                   "ra_main10.b1080_pan",

@@ -1,7 +1,7 @@
 """The plain reference against hand-made cases: Annex-B framing and the
 picture hash, the SSD table against a direct sum, the two-pass argmin on
-a table with one clear minimum, and the intra predictions of flat
-neighbours."""
+a table with one clear minimum, the intra predictions of flat
+neighbours, and the decode check of a stream with three IDRs."""
 import hashlib
 
 import numpy as np
@@ -100,3 +100,41 @@ def test_screen_of_a_flat_picture():
     assert set(out) == {2, 3, 4, 5}
     cands, costs = out[3]
     assert cands.shape == (4, 6, 8) and costs.shape == (4, 6)
+
+
+def test_three_idrs_decode_under_their_display_index(one_thread):
+    """Three all-intra pictures, each an IDR with POC 0, decode under the
+    keys 0, 1 and 2, each equal to the encoder's reconstruction."""
+    import os
+
+    from benchmark.harness import decode
+    from conftest import ROOT
+    from hevc_tpu_torch.encoder.top import EncoderTop
+    from hevc_tpu_torch.io.cfg import parse_cli, validate
+
+    cfg = parse_cli(["-c", os.path.join(ROOT, "hevc_tpu_torch", "cfg",
+                                        "encoder_intra_main.cfg"),
+                     "-wdt", "64", "-hgt", "64", "-f", "3",
+                     "--InputBitDepth=8"])
+    validate(cfg)
+    enc = EncoderTop(cfg, device="cpu")
+    g = np.random.default_rng(5)
+    src = {i: [g.integers(0, 256, (64 >> s, 64 >> s)).astype(np.uint8)
+               for s in (0, 1, 1)] for i in range(3)}
+    data = b"".join(enc.encode_frame(src[i]) for i in range(3))
+    recons = dict(enc.pop_recons())
+    assert sorted(recons) == [0, 1, 2]
+    dec = decode._Sampled({}, [0, 1, 2], 0)
+    try:
+        for _ in dec.decode_stream(data):
+            pass
+    except decode._Done:
+        pass
+    assert [r["poc"] for r in dec.stats] == [0, 0, 0]
+    assert sorted(dec.decoded) == [0, 1, 2]
+    assert all(dec.hash_ok.values())
+    for i in range(3):
+        assert all(np.array_equal(a, b)
+                   for a, b in zip(dec.decoded[i], recons[i])), i
+    out = decode.check(data, recons, {}, [1, 2], 8)
+    assert (out["pocs"], out["samples"], out["hashes"]) == ([0, 1, 2], 0, 0)

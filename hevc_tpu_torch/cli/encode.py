@@ -86,9 +86,12 @@ def main(argv=None, device="cuda") -> int:
         # lookahead pipeline: upcoming frames' device work (intra
         # prescreen / integer ME against the final references) is
         # dispatched ahead and computes under the current frame's host
-        # work. All-intra frames are device-independent, so a deeper
-        # queue keeps the device pipeline saturated; inter stays at one
-        # frame (ME needs the previous frame's final references).
+        # work. All-intra frames are device-independent, so each is
+        # prescreened as it is read, three ahead of the one being coded,
+        # and its screen waits under its display index until
+        # encode_frame codes it (a frame read with none waiting is
+        # screened synchronously); inter stays at one frame (ME needs the
+        # previous frame's final references).
         from collections import deque
         deep = cfg.intra_period == 1 and not cfg.field_coding
         look = 3 if deep else 1
@@ -102,7 +105,7 @@ def main(argv=None, device="cuda") -> int:
                 nread += 1
                 if p is not None:
                     if deep:
-                        enc.prefetch_frame(p)
+                        enc.prefetch_frame(p, picture=nread - 1)
                     buf.append(p)
 
         for _ in range(1 + look):

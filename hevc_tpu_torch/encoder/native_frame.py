@@ -142,8 +142,8 @@ class NativeFrameEncoder:
         self.wp1 = wp1
         self.ref1_pocs = ref1_pocs
         # optional zero-arg resolver for an already-dispatched device
-        # intra prescreen (EncoderTop's one-frame lookahead hides the
-        # device round trip behind the previous frame's host work)
+        # intra prescreen of this picture's source (EncoderTop's
+        # lookahead hides the device round trip behind earlier host work)
         self.intra_screen = intra_screen
 
     def encode_frame(self, orig: List[np.ndarray], slices=None):
@@ -331,6 +331,9 @@ class NativeFrameEncoder:
             # for the whole frame in batched launches (all depths
             # through 16 — the screen carries int32 planes above 14
             # and its SATD accumulation stays within int32)
+            timers.add("intra_screened")
+            if self.intra_screen is not None:
+                timers.add("intra_lookahead_taken")
             with timers.section("intra_device"):
                 if self.intra_screen is not None:
                     intra_hints = self.intra_screen()

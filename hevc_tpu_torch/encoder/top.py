@@ -20,7 +20,6 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -346,9 +345,9 @@ class EncoderTop:
             self.sps.vui_num_units_in_tick = 1
             self.sps.vui_time_scale = int(round(cfg.frame_rate or 30))
         self._au_count_since_bp = 0
-        # FIFO of dispatched-but-unresolved intra prescreens (one entry
-        # per not-yet-encoded frame, in display order)
-        self._intra_screen_q = deque()
+        # dispatched-but-unresolved intra prescreens, keyed by the display
+        # index of the picture whose source each screened
+        self._intra_screens: Dict[int, object] = {}
         if cfg.vui or cfg.field_coding:
             # VUI timing info (annex E.2.1; reference TEncTop xInitSPS VUI
             # block). For field coding each coded picture is one field:
@@ -588,12 +587,14 @@ class EncoderTop:
         lam = 0.57 * (2.0 ** ((self.cfg.qp - 12) / 3.0))
         return int(65536.0 * math.sqrt(lam))
 
-    def prefetch_intra_screen(self, planes: List[np.ndarray]) -> None:
-        """Dispatch the device intra prescreen for the NEXT frame (all-
-        intra sequences). The dispatch is asynchronous; by the time the
-        next encode_frame() needs the candidate lists the device has
-        computed them under the current frame's host work — hiding the
-        device round trip entirely. Safe no-op otherwise."""
+    def prefetch_intra_screen(self, planes: List[np.ndarray],
+                              picture: int) -> None:
+        """Dispatch the device intra prescreen of display picture
+        `picture`, whose source `planes` are (all-intra sequences; a no-op
+        otherwise). The dispatch is asynchronous and the screen is kept
+        under `picture`: the encode_frame() that codes that picture takes
+        it, the device having computed it under the host work in between.
+        A screen of a picture that is already coded is dropped unused."""
         import math as _math
         import os as _osm
         if (self.cfg.intra_period != 1
@@ -603,24 +604,41 @@ class EncoderTop:
         from ..ops.intra_screen import screen_frame_async
         lam = 0.57 * (2.0 ** ((self.cfg.qp - 12) / 3.0))
         pdt = np.int16 if self.cfg.internal_bit_depth <= 14 else np.int32
-        self._intra_screen_q.append(screen_frame_async(
+        self._intra_screens[picture] = screen_frame_async(
             np.ascontiguousarray(planes[0], pdt),
             self.cfg.internal_bit_depth, _math.sqrt(lam),
-            device=self.device))
+            device=self.device)
 
-    def prefetch_frame(self, planes: List[np.ndarray]) -> None:
-        """One-frame lookahead: dispatch the NEXT frame's device work
-        (intra prescreen or integer motion search) so it computes under
-        the CURRENT frame's host work. Call with frame N+1's planes just
-        before encode_frame(frame N). Always safe — a frame whose
-        prediction structure cannot be prefetched simply takes the
-        synchronous path."""
-        # the work is for the next picture in display order
+    def _take_intra_screen(self, picture: int):
+        """The prefetched screen of display picture `picture`, or None (the
+        picture is then screened synchronously). Screens of pictures
+        before it can no longer be used and are dropped."""
+        for p in [p for p in self._intra_screens if p < picture]:
+            del self._intra_screens[p]
+        return self._intra_screens.pop(picture, None)
+
+    def prefetch_frame(self, planes: List[np.ndarray],
+                       picture: Optional[int] = None) -> None:
+        """Lookahead: dispatch a later picture's device work (intra
+        prescreen or integer motion search) so it computes under the
+        current picture's host work. `picture` is the display index of
+        the picture whose source `planes` are (the first picture is 0);
+        by default the next picture after those already submitted, so
+        call with picture N+1's planes just before encode_frame(picture
+        N). All-intra pictures are independent, so a caller may prefetch
+        any picture ahead (the CLI runs three ahead); the screen waits
+        under its picture's index until encode_frame codes that picture.
+        The motion search is planned for the next picture only and is
+        not dispatched for any other. Always safe: a picture with nothing
+        prefetched for it takes the synchronous path."""
+        # by default the work is for the next picture in display order
         nxt = (self.in_count if self.reordered else self.poc) + 1
-        with timers.loop_span("lookahead", picture=nxt):
+        pic = nxt if picture is None else picture
+        with timers.loop_span("lookahead", picture=pic):
             planes = self._pad_to_coded(planes)
-            self.prefetch_intra_screen(planes)
-            self._prefetch_me(planes)
+            self.prefetch_intra_screen(planes, pic)
+            if pic == nxt:
+                self._prefetch_me(planes)
 
     def _next_frame_plan(self):
         """Predict the NEXT submitted frame's coding parameters (cvs_poc,
@@ -1309,8 +1327,7 @@ class EncoderTop:
                 set_collocated(senc, self.dpb_motion[l0_poc], True)
             if use_native:
                 from .native_frame import NativeFrameEncoder
-                scr = (self._intra_screen_q.popleft()
-                       if self._intra_screen_q else None)
+                scr = self._take_intra_screen(display_poc)
                 fe = NativeFrameEncoder(self.sps, slice_qp, senc, sp,
                                         intra_screen=scr, lam=pic_lam,
                                         device=self.device)

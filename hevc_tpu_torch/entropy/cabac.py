@@ -840,13 +840,16 @@ class _MapsView:
 # seconds its threads spent inside encode_ctu (busy), waiting for a CTU
 # ready to code (wait), threads x the frame calls' wall time, and busy
 # split into the RD stages; then the counts of ENGINE_TRACE_COUNTS: traced
-# frame calls, and CTU rows that changed hands on the wavefront
+# frame calls, CTU rows that changed hands on the wavefront, and intra luma
+# modes taken through full RD (predicted, transformed, quantised,
+# reconstructed and rated: the exact-RD shortlist of a CU, each candidate
+# of an NxN partition's 4x4 PUs)
 ENGINE_TRACE_KEYS = ("engine_busy_s", "engine_wait_s", "engine_thread_wall_s",
                      "engine_intra_s", "engine_merge_s",
                      "engine_inter_search_s", "engine_residual_s",
                      "engine_other_s", "engine_traced_frames",
-                     "engine_row_switches")
-ENGINE_TRACE_COUNTS = 2
+                     "engine_row_switches", "engine_intra_rd_modes")
+ENGINE_TRACE_COUNTS = 3
 
 
 def engine_frame_stats(pel32: bool = False) -> dict:

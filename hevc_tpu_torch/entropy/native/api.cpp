@@ -74,8 +74,8 @@ void hevc_engine_trace(int on) { hevctpu::trace::g_on.store(on != 0); }
 
 // Their process-wide totals, trace::kTotals of them in trace::Total order:
 // ns of busy, wait, threads x wall, intra, merge, inter search, residual,
-// other; then the number of traced frame calls and of CTU rows that changed
-// hands on the wavefront.
+// other; then the number of traced frame calls, of CTU rows that changed
+// hands on the wavefront and of intra modes taken through full RD.
 int hevc_engine_trace_stats(long long* out, int n) {
   if (n < hevctpu::trace::kTotals) return -1;
   hevctpu::trace::totals(out);

@@ -39,6 +39,7 @@ void Frame::add(const Sums& s) {
   sum_.busy += s.busy;
   sum_.wait += s.wait;
   sum_.row_switches += s.row_switches;
+  sum_.intra_rd_modes += s.intra_rd_modes;
 }
 
 Frame::~Frame() {
@@ -58,6 +59,7 @@ Frame::~Frame() {
   for (int i = 0; i < kStages; ++i) g_totals[kStage0 + i] += ns(sum_.stage[i]);
   g_totals[kFrames] += 1;
   g_totals[kRowSwitches] += sum_.row_switches;
+  g_totals[kIntraRdModes] += sum_.intra_rd_modes;
 }
 }  // namespace trace
 }  // namespace hevctpu
@@ -1677,6 +1679,7 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
     int jmode = best_mode;
     for (int k = 0; k < ntop; ++k) {
       int mode = top_modes[k];
+      trace::intra_rd_mode();
       const int32_t* fsel = dsp::intra_filter_flag(mode, n, true) ? ff : f;
       dsp::intra_predict(fsel, f, mode, n, bd_, true, pred);
       for (int i = 0; i < n; ++i)
@@ -2180,6 +2183,7 @@ double CtuEngine::encode_cu_intra(int x0, int y0, int log2,
       int slot = (((py - y0) >> 2) & 7) * 8 + (((px - x0) >> 2) & 7);
       for (int t = 0; t < nt; ++t) {
         double sse = 0, bits = (double)mode_bits(tmodes[t], candp);
+        trace::intra_rd_mode();
         code_tb_i(0, px, py, 4, tmodes[t], &sse, &bits);
         double j = sse + lam_sq * bits;
         if (jb < 0 || j < jb) {

@@ -32,17 +32,18 @@ namespace hevctpu {
 // hevc_engine_trace_stats. While on, every thread that encodes CTUs sums
 // the wall time of its encode_ctu calls (busy) into disjoint RD stages —
 // the innermost open Stage owns the time, what no Stage claims goes to
-// kOther — the time it waits for a CTU that is ready to code, and the
-// times a CTU row changes hands. The sums live in thread-local storage and
-// reach the frame's totals once, when the thread's Worker ends. Times are
-// TSC ticks, scaled to nanoseconds per frame against CLOCK_MONOTONIC
-// (Frame). Off, a scope costs one branch.
+// kOther — the time it waits for a CTU that is ready to code, the times a
+// CTU row changes hands, and the intra modes it takes through full RD. The
+// sums live in thread-local storage and reach the frame's totals once, when
+// the thread's Worker ends. Times are TSC ticks, scaled to nanoseconds per
+// frame against CLOCK_MONOTONIC (Frame). Off, a scope costs one branch.
 namespace trace {
 enum StageId { kIntra, kMerge, kInterSearch, kResidual, kOther, kStages };
 struct Sums {
   long long stage[kStages];
   long long busy, wait;
   long long row_switches;  // a count, not ticks
+  long long intra_rd_modes;  // a count
 };
 struct Thread {
   bool on = false;
@@ -52,10 +53,10 @@ struct Thread {
 };
 extern std::atomic<bool> g_on;
 extern thread_local Thread tl;
-// process-wide totals (ns; then counts: traced frames, row switches), in
-// this order
+// process-wide totals (ns; then counts: traced frames, row switches, intra
+// modes through full RD), in this order
 enum Total { kBusy, kWait, kThreadWall, kStage0, kFrames = kStage0 + kStages,
-             kRowSwitches, kTotals };
+             kRowSwitches, kIntraRdModes, kTotals };
 void totals(long long* out);
 
 inline long long ticks() {
@@ -144,6 +145,12 @@ class Wait {
 // another worker released it.
 inline void row_switch() {
   if (Thread* t = active()) ++t->s.row_switches;
+}
+
+// One intra luma mode taken through full RD: predicted, its residual
+// transformed, quantised and reconstructed, its rate counted.
+inline void intra_rd_mode() {
+  if (Thread* t = active()) ++t->s.intra_rd_modes;
 }
 
 // One engine frame call: the switch as it stood at the call's start, its

@@ -21,7 +21,7 @@ from hevc_tpu_torch import runtime
 from hevc_tpu_torch.entropy import cabac
 from hevc_tpu_torch.utils import timing
 from hevc_tpu_torch.utils.timing import timers
-from test_torch_helpers import LDP_CFG, REPO, moving_frames
+from test_torch_helpers import INTRA_CFG, LDP_CFG, REPO, moving_frames
 from test_torch_helpers import one_torch_thread  # noqa: F401
 
 W, H, N = 416, 240, 4
@@ -144,6 +144,49 @@ def test_lookahead_taken_within_searched(runs):
     assert count["me_searched"] == N - 1
 
 
+def test_intra_counters_read_nothing_with_tracing_off(runs):
+    """Off, no intra counter and no engine count moves; on, the IDR (the
+    one I picture, screened synchronously) counts once and its CUs take
+    intra modes through full RD."""
+    assert runs["off"][2]["count"] == {}
+    assert all(c["engine_intra_rd_modes"] == 0 for c in runs["off"][1])
+    count = runs["on"][2]["count"]
+    assert count["intra_screened"] == 1
+    assert count.get("intra_lookahead_taken", 0) == 0
+    assert runs["on"][1][0]["engine_intra_rd_modes"] > 0
+
+
+def _intra_rd_modes(w, h, planes):
+    """The engine's count of intra modes taken through full RD over one
+    all-intra picture of w x h, coded with tracing on."""
+    from hevc_tpu_torch.encoder.top import EncoderTop
+    from hevc_tpu_torch.io.cfg import parse_cli, validate
+    cfg = parse_cli(["-c", INTRA_CFG, "-wdt", str(w), "-hgt", str(h),
+                     "-f", "1"])
+    validate(cfg)
+    enc = EncoderTop(cfg, device="cpu")
+    timers.reset()
+    timers.enabled = True
+    try:
+        e0 = cabac.engine_frame_stats()
+        enc.encode_frame([np.ascontiguousarray(p) for p in planes])
+        e1 = cabac.engine_frame_stats()
+    finally:
+        timers.enabled = False
+        timers.reset()
+    assert e1["engine_traced_frames"] - e0["engine_traced_frames"] == 1
+    return e1["engine_intra_rd_modes"] - e0["engine_intra_rd_modes"]
+
+
+def test_engine_intra_rd_modes_grow_with_the_cus():
+    """A 192x128 all-intra picture (six 64x64 CTUs) takes more intra modes
+    through full RD than its own top-left 64x64 CTU coded alone."""
+    y, u, v = moving_frames(1, 192, 128)[0]
+    small = _intra_rd_modes(64, 64, [y[:64, :64], u[:32, :32], v[:32, :32]])
+    big = _intra_rd_modes(192, 128, [y, u, v])
+    assert 0 < small < big
+
+
 def test_h2d_bytes_are_the_uploads_sizes(runs):
     count, uploads = runs["on"][2]["count"], runs["on"][3]
     assert count["h2d_bytes"] == sum(uploads) > 0
@@ -218,15 +261,24 @@ def _tiny_bench(tmp_path):
     return str(dst)
 
 
-# the per-layer metrics that read the program's trace
-TRACE_METRICS = (
+# the per-layer metrics that read the program's trace, by the cell whose
+# traced run on the CPU reads them (the all-intra cell's run is in
+# test_torch_intra_main.py; intra_screen_roofline reads the device trace
+# of the prescreen kernel and so reads nothing on the CPU)
+_ENGINE_AND_LOOP = (
     "engine_wait_ms_per_frame", "engine_intra_ms_per_frame",
-    "engine_merge_ms_per_frame", "engine_inter_search_ms_per_frame",
     "engine_residual_ms_per_frame", "engine_other_ms_per_frame",
-    "engine_host_ms_p90", "lookahead_ms_per_frame", "ref_prep_ms_per_frame",
+    "engine_host_ms_p90", "lookahead_ms_per_frame",
     "frame_setup_ms_per_frame", "stream_write_ms_per_frame",
-    "me_lookahead_hit_share", "h2d_mb_per_frame",
-    "engine_row_switches_per_frame")
+    "h2d_mb_per_frame", "engine_row_switches_per_frame")
+TRACE_METRICS = {
+    "ldp_main.e720_static": _ENGINE_AND_LOOP + (
+        "engine_merge_ms_per_frame", "engine_inter_search_ms_per_frame",
+        "ref_prep_ms_per_frame", "me_lookahead_hit_share"),
+    "intra_main.b1080_pan": _ENGINE_AND_LOOP + (
+        "intra_wait_ms_per_frame", "intra_lookahead_hit_share",
+        "engine_intra_rd_modes_per_frame", "intra_screen_roofline"),
+}
 
 
 # one traced run of the harness on the CPU, in a process of its own (the
@@ -256,7 +308,8 @@ def test_harness_trace_run_reads_every_trace_metric(tmp_path):
     from benchmark.harness import spec
     listed = {m["name"] for m in spec.metrics_of(
         spec.benchmark(), "per_layer", "ldp_main.e720_static")}
-    assert set(TRACE_METRICS) <= listed
+    names = TRACE_METRICS["ldp_main.e720_static"]
+    assert set(names) <= listed
     env = dict(os.environ, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", _HARNESS,
                           _tiny_bench(tmp_path)], cwd=REPO, env=env,
@@ -265,7 +318,7 @@ def test_harness_trace_run_reads_every_trace_metric(tmp_path):
     result = json.loads(out.stdout.splitlines()[-1])
     assert result["correct"] is True
     m = {k: v["value"] for k, v in result["metrics"].items()}
-    for name in TRACE_METRICS:
+    for name in names:
         assert isinstance(m.get(name), float), name
     assert m["me_lookahead_hit_share"] > 0
     assert m["h2d_mb_per_frame"] >= 192 * 128 / 1e6

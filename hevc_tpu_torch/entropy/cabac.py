@@ -207,6 +207,7 @@ def get_lib(pel32: bool = False) -> ctypes.CDLL:
         + stacked
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     lib.hevc_engine_set_scaling.argtypes = [ctypes.c_void_p, i32p]
+    lib.hevc_dsp_xform.argtypes = [ctypes.c_int] * 4 + [i32p, i32p]
     lib.hevc_engine_set_refine.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
@@ -840,16 +841,17 @@ class _MapsView:
 # seconds its threads spent inside encode_ctu (busy), waiting for a CTU
 # ready to code (wait), threads x the frame calls' wall time, and busy
 # split into the RD stages; then the counts of ENGINE_TRACE_COUNTS: traced
-# frame calls, CTU rows that changed hands on the wavefront, and intra luma
+# frame calls, CTU rows that changed hands on the wavefront, intra luma
 # modes taken through full RD (predicted, transformed, quantised,
 # reconstructed and rated: the exact-RD shortlist of a CU, each candidate
-# of an NxN partition's 4x4 PUs)
+# of an NxN partition's 4x4 PUs), and core transforms, forward and inverse
 ENGINE_TRACE_KEYS = ("engine_busy_s", "engine_wait_s", "engine_thread_wall_s",
                      "engine_intra_s", "engine_merge_s",
                      "engine_inter_search_s", "engine_residual_s",
                      "engine_other_s", "engine_traced_frames",
-                     "engine_row_switches", "engine_intra_rd_modes")
-ENGINE_TRACE_COUNTS = 3
+                     "engine_row_switches", "engine_intra_rd_modes",
+                     "engine_xforms")
+ENGINE_TRACE_COUNTS = 4
 
 
 def engine_frame_stats(pel32: bool = False) -> dict:

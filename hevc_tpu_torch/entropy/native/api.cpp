@@ -75,11 +75,22 @@ void hevc_engine_trace(int on) { hevctpu::trace::g_on.store(on != 0); }
 // Their process-wide totals, trace::kTotals of them in trace::Total order:
 // ns of busy, wait, threads x wall, intra, merge, inter search, residual,
 // other; then the number of traced frame calls, of CTU rows that changed
-// hands on the wavefront and of intra modes taken through full RD.
+// hands on the wavefront, of intra modes taken through full RD and of core
+// transforms.
 int hevc_engine_trace_stats(long long* out, int n) {
   if (n < hevctpu::trace::kTotals) return -1;
   hevctpu::trace::totals(out);
   return hevctpu::trace::kTotals;
+}
+
+// The core transform pair alone, for tests: dir 0 forward (residual ->
+// coefficients), 1 inverse; n*n int32 in and out. No encode path calls it.
+void hevc_dsp_xform(int dir, int n, int bd, int dst, const int32_t* in,
+                    int32_t* out) {
+  if (dir == 0)
+    hevctpu::dsp::fwd_xform(in, n, bd, dst != 0, out);
+  else
+    hevctpu::dsp::inv_xform(in, n, bd, dst != 0, out);
 }
 
 // Always-on frame-drive telemetry: wall vs process-CPU ns accumulated per

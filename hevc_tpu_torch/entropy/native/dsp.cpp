@@ -2,22 +2,17 @@
 #include "dsp.h"
 
 #include <algorithm>
-#include <limits>
 #include <cstring>
+#include <limits>
+#include <type_traits>
+#include <utility>
+
+#include "engine.h"
 
 namespace hevctpu {
 namespace dsp {
 
 namespace {
-
-// 33 distinct transform coefficients fixed by spec 8.6.4.2 (magnitudes for
-// angle m*pi/64, m in [0,32]; hand-tuned by the standard for orthogonality).
-const int32_t kDctCoef[33] = {
-    64, 90, 90, 90, 89, 88, 87, 85, 83, 82, 80, 78, 75, 73, 70, 67,
-    64, 61, 57, 54, 50, 46, 43, 38, 36, 31, 25, 22, 18, 13, 9, 4, 0};
-
-const int32_t kDst4[16] = {29, 55, 74, 84,  74, 74, 0, -74,
-                           84, -29, -74, 55, 55, -84, 74, -29};
 
 // spec 8.4.4.2.3 filtering thresholds per log2 size (index 2..5)
 const int kIntraFilterThresh[6] = {0, 0, 10, 7, 1, 0};
@@ -34,28 +29,6 @@ int ilog2(int n) {
   while ((1 << k) < n) ++k;
   return k;
 }
-
-struct DctTables {
-  int32_t t4[16], t8[64], t16[256], t32[1024];
-  DctTables() {
-    build(t4, 4);
-    build(t8, 8);
-    build(t16, 16);
-    build(t32, 32);
-  }
-  static void build(int32_t* t, int n) {
-    int step = 32 / n;
-    for (int k = 0; k < n; ++k)
-      for (int col = 0; col < n; ++col) {
-        int m = (k * (2 * col + 1) * step) % 128;
-        int s = 1;
-        if (m > 64) m = 128 - m;
-        if (m > 32) { m = 64 - m; s = -1; }
-        t[k * n + col] = s * kDctCoef[m];
-      }
-  }
-};
-const DctTables g_dct;
 
 const int32_t kLumaFilters[4][8] = {
     {0, 0, 0, 64, 0, 0, 0, 0},
@@ -108,88 +81,309 @@ const int32_t* default_scaling_matrix(int n, bool intra) {
   return g_scaling.m[intra ? 1 : 0][lg - 3];
 }
 
-const int32_t* dct_matrix(int n) {
-  switch (n) {
-    case 4: return g_dct.t4;
-    case 8: return g_dct.t8;
-    case 16: return g_dct.t16;
-    default: return g_dct.t32;
+namespace {
+
+// The core transform pair (spec 8.6.4.2; HM TComTrQuant.cpp
+// partialButterfly{4,8,16,32}(+Inverse), fastForwardDst/fastInverseDst),
+// one instance per block size with the size fixed at compile time. Each
+// 1-D pass runs along the vector index with one line of the block per
+// lane (GCC vector extensions, lowered to the host ISA): v4si at 4x4,
+// v8si strips of 8 lines above. A horizontal pass takes its strip through
+// in-register transposes of 4x4 or 8x8 tiles, a vertical pass reads
+// whole rows. The coefficients are immediates (fold expressions over
+// compile-time indices into constexpr tables).
+//
+// int32 lanes are exact. Every partial sum of a 1-D pass (the butterflies'
+// sums and differences and each product of a dot product with them) is
+// bounded by sum_j |T[k][j]| |x_j| <= N * 90 * max|x|: forward stage 1
+// 32 * 90 * 65535 < 2^28 at 16 bits; its outputs are <= 90 << 9 after the
+// s1 shift, so stage 2 <= 32 * 90 * 46080 < 2^28; inverse stages take
+// 16-bit inputs (the dequantiser's clip, then the stage-1 clip): <=
+// 32 * 90 * 32768 < 2^27.
+
+// 33 distinct transform coefficients fixed by spec 8.6.4.2 (magnitudes for
+// angle m*pi/64, m in [0,32]; hand-tuned by the standard for orthogonality).
+constexpr int32_t kDctCoef[33] = {
+    64, 90, 90, 90, 89, 88, 87, 85, 83, 82, 80, 78, 75, 73, 70, 67,
+    64, 61, 57, 54, 50, 46, 43, 38, 36, 31, 25, 22, 18, 13, 9, 4, 0};
+
+// N-point DCT matrix, row k = frequency, derived from the 33 coefficients
+// by cosine-index folding
+template <int N>
+struct DctMat {
+  int32_t c[N][N];
+  constexpr DctMat() : c() {
+    for (int k = 0; k < N; ++k)
+      for (int col = 0; col < N; ++col) {
+        int m = (k * (2 * col + 1) * (32 / N)) % 128;
+        int s = 1;
+        if (m > 64) m = 128 - m;
+        if (m > 32) { m = 64 - m; s = -1; }
+        c[k][col] = s * kDctCoef[m];
+      }
+  }
+};
+template <int N>
+constexpr DctMat<N> kDct{};
+
+struct Dst4Mat {
+  int32_t c[4][4] = {{29, 55, 74, 84}, {74, 74, 0, -74},
+                     {84, -29, -74, 55}, {55, -84, 74, -29}};
+};
+constexpr Dst4Mat kDst4{};
+
+typedef int32_t v4si __attribute__((vector_size(16)));
+typedef int32_t v8si __attribute__((vector_size(32)));
+
+template <class V>
+inline V vload(const int32_t* p) {
+  V v;
+  std::memcpy(&v, p, sizeof v);
+  return v;
+}
+template <class V>
+inline void vstore(int32_t* p, V v) {
+  std::memcpy(p, &v, sizeof v);
+}
+template <class V>
+inline V vclamp(V v, int32_t lo, int32_t hi) {
+  const V l = V{} + lo, h = V{} + hi;
+  v = v < l ? l : v;
+  return v > h ? h : v;
+}
+
+inline void transpose4(v4si r[4]) {
+  v4si a0 = __builtin_shufflevector(r[0], r[1], 0, 4, 1, 5);
+  v4si a1 = __builtin_shufflevector(r[0], r[1], 2, 6, 3, 7);
+  v4si a2 = __builtin_shufflevector(r[2], r[3], 0, 4, 1, 5);
+  v4si a3 = __builtin_shufflevector(r[2], r[3], 2, 6, 3, 7);
+  r[0] = __builtin_shufflevector(a0, a2, 0, 1, 4, 5);
+  r[1] = __builtin_shufflevector(a0, a2, 2, 3, 6, 7);
+  r[2] = __builtin_shufflevector(a1, a3, 0, 1, 4, 5);
+  r[3] = __builtin_shufflevector(a1, a3, 2, 3, 6, 7);
+}
+
+inline void transpose8(v8si r[8]) {
+  v8si a0 = __builtin_shufflevector(r[0], r[1], 0, 8, 1, 9, 4, 12, 5, 13);
+  v8si a1 = __builtin_shufflevector(r[0], r[1], 2, 10, 3, 11, 6, 14, 7, 15);
+  v8si a2 = __builtin_shufflevector(r[2], r[3], 0, 8, 1, 9, 4, 12, 5, 13);
+  v8si a3 = __builtin_shufflevector(r[2], r[3], 2, 10, 3, 11, 6, 14, 7, 15);
+  v8si a4 = __builtin_shufflevector(r[4], r[5], 0, 8, 1, 9, 4, 12, 5, 13);
+  v8si a5 = __builtin_shufflevector(r[4], r[5], 2, 10, 3, 11, 6, 14, 7, 15);
+  v8si a6 = __builtin_shufflevector(r[6], r[7], 0, 8, 1, 9, 4, 12, 5, 13);
+  v8si a7 = __builtin_shufflevector(r[6], r[7], 2, 10, 3, 11, 6, 14, 7, 15);
+  v8si b0 = __builtin_shufflevector(a0, a2, 0, 1, 8, 9, 4, 5, 12, 13);
+  v8si b1 = __builtin_shufflevector(a0, a2, 2, 3, 10, 11, 6, 7, 14, 15);
+  v8si b2 = __builtin_shufflevector(a1, a3, 0, 1, 8, 9, 4, 5, 12, 13);
+  v8si b3 = __builtin_shufflevector(a1, a3, 2, 3, 10, 11, 6, 7, 14, 15);
+  v8si b4 = __builtin_shufflevector(a4, a6, 0, 1, 8, 9, 4, 5, 12, 13);
+  v8si b5 = __builtin_shufflevector(a4, a6, 2, 3, 10, 11, 6, 7, 14, 15);
+  v8si b6 = __builtin_shufflevector(a5, a7, 0, 1, 8, 9, 4, 5, 12, 13);
+  v8si b7 = __builtin_shufflevector(a5, a7, 2, 3, 10, 11, 6, 7, 14, 15);
+  r[0] = __builtin_shufflevector(b0, b4, 0, 1, 2, 3, 8, 9, 10, 11);
+  r[4] = __builtin_shufflevector(b0, b4, 4, 5, 6, 7, 12, 13, 14, 15);
+  r[1] = __builtin_shufflevector(b1, b5, 0, 1, 2, 3, 8, 9, 10, 11);
+  r[5] = __builtin_shufflevector(b1, b5, 4, 5, 6, 7, 12, 13, 14, 15);
+  r[2] = __builtin_shufflevector(b2, b6, 0, 1, 2, 3, 8, 9, 10, 11);
+  r[6] = __builtin_shufflevector(b2, b6, 4, 5, 6, 7, 12, 13, 14, 15);
+  r[3] = __builtin_shufflevector(b3, b7, 0, 1, 2, 3, 8, 9, 10, 11);
+  r[7] = __builtin_shufflevector(b3, b7, 4, 5, 6, 7, 12, 13, 14, 15);
+}
+
+template <class V>
+inline void transpose(V* r) {
+  if constexpr (sizeof(V) == 16) transpose4(r);
+  else transpose8(r);
+}
+
+template <int... I>
+using Seq = std::integer_sequence<int, I...>;
+template <int N>
+using Iota = std::make_integer_sequence<int, N>;
+
+// Dot products with a constexpr matrix M: of row R with x[0..] (forward),
+// or of column C with x at the rows K0 + Step * K (inverse).
+template <const auto& M, int R, class V, int... J>
+inline V dot_row(const V* x, Seq<J...>) {
+  return ((M.c[R][J] * x[J]) + ...);
+}
+template <const auto& M, int C, int Step, int K0, class V, int... K>
+inline V dot_col(const V* x, Seq<K...>) {
+  return ((M.c[K0 + Step * K][C] * x[K0 + Step * K]) + ...);
+}
+
+// One pass of the N-point DCT along the vector index, each lane its own
+// line: fwd y[k] = sum_i T[k][i] x[i], inv y[i] = sum_k T[k][i] x[k].
+// Even-odd decomposition (partialButterfly*): the even frequencies are the
+// N/2-point transform of the sums x[i] + x[N-1-i], the odd ones N/2-term
+// dot products of the differences (T[k][N-1-i] = (-1)^k T[k][i]).
+template <int N, class V>
+struct Dct {
+  static constexpr int H = N / 2;
+
+  template <int... K>
+  static inline void odd_fwd(const V* o, V* y, Seq<K...>) {
+    ((y[2 * K + 1] = dot_row<kDct<N>, 2 * K + 1>(o, Iota<H>{})), ...);
+  }
+  template <int... I>
+  static inline void odd_inv(const V* c, V* o, Seq<I...>) {
+    ((o[I] = dot_col<kDct<N>, I, 2, 1>(c, Iota<H>{})), ...);
+  }
+
+  static inline void fwd(const V* x, V* y) {
+    if constexpr (N == 4) {
+      const V e0 = x[0] + x[3], e1 = x[1] + x[2];
+      const V o0 = x[0] - x[3], o1 = x[1] - x[2];
+      y[0] = 64 * (e0 + e1);
+      y[2] = 64 * (e0 - e1);
+      y[1] = 83 * o0 + 36 * o1;
+      y[3] = 36 * o0 - 83 * o1;
+    } else {
+      V e[H], o[H], ye[H];
+      for (int i = 0; i < H; ++i) {
+        e[i] = x[i] + x[N - 1 - i];
+        o[i] = x[i] - x[N - 1 - i];
+      }
+      Dct<H, V>::fwd(e, ye);
+      for (int k = 0; k < H; ++k) y[2 * k] = ye[k];
+      odd_fwd(o, y, Iota<H>{});
+    }
+  }
+
+  static inline void inv(const V* c, V* y) {
+    if constexpr (N == 4) {
+      const V e0 = 64 * (c[0] + c[2]), e1 = 64 * (c[0] - c[2]);
+      const V o0 = 83 * c[1] + 36 * c[3], o1 = 36 * c[1] - 83 * c[3];
+      y[0] = e0 + o0;
+      y[3] = e0 - o0;
+      y[1] = e1 + o1;
+      y[2] = e1 - o1;
+    } else {
+      V ce[H], ye[H], o[H];
+      for (int k = 0; k < H; ++k) ce[k] = c[2 * k];
+      Dct<H, V>::inv(ce, ye);
+      odd_inv(c, o, Iota<H>{});
+      for (int i = 0; i < H; ++i) {
+        y[i] = ye[i] + o[i];
+        y[N - 1 - i] = ye[i] - o[i];
+      }
+    }
+  }
+};
+
+// The 4-point DST-VII pass: the plain product, fully unrolled
+struct Dst4 {
+  template <int... K>
+  static inline void fwd_rows(const v4si* x, v4si* y, Seq<K...>) {
+    ((y[K] = dot_row<kDst4, K>(x, Iota<4>{})), ...);
+  }
+  template <int... I>
+  static inline void inv_cols(const v4si* c, v4si* y, Seq<I...>) {
+    ((y[I] = dot_col<kDst4, I, 1, 0>(c, Iota<4>{})), ...);
+  }
+  static inline void fwd(const v4si* x, v4si* y) { fwd_rows(x, y, Iota<4>{}); }
+  static inline void inv(const v4si* c, v4si* y) { inv_cols(c, y, Iota<4>{}); }
+};
+
+template <int N>
+using Lanes = std::conditional_t<N == 4, v4si, v8si>;
+
+// forward: stage 1 horizontal (rows as lanes: each strip's tiles are
+// transposed on the way in and back on the way out, so the intermediate
+// is row-major), stage 2 vertical (columns as lanes, whole rows read)
+template <int N, class T>
+void fwd_2d(const int32_t* resi, int bd, int32_t* out) {
+  using V = Lanes<N>;
+  constexpr int W = sizeof(V) / sizeof(int32_t);
+  constexpr int kLog2 = __builtin_ctz(N);
+  const int s1 = kLog2 + bd - 9, s2 = kLog2 + 6;
+  const int32_t r1 = 1 << (s1 - 1), r2 = 1 << (s2 - 1);
+  alignas(32) int32_t tmp[N * N];
+  for (int i0 = 0; i0 < N; i0 += W) {
+    V x[N], y[N];
+    for (int j0 = 0; j0 < N; j0 += W) {
+      V t[W];
+      for (int r = 0; r < W; ++r) t[r] = vload<V>(resi + (i0 + r) * N + j0);
+      transpose(t);
+      for (int r = 0; r < W; ++r) x[j0 + r] = t[r];
+    }
+    T::fwd(x, y);
+    for (int k0 = 0; k0 < N; k0 += W) {
+      V t[W];
+      for (int r = 0; r < W; ++r) t[r] = (y[k0 + r] + r1) >> s1;
+      transpose(t);
+      for (int r = 0; r < W; ++r) vstore(tmp + (i0 + r) * N + k0, t[r]);
+    }
+  }
+  for (int c0 = 0; c0 < N; c0 += W) {
+    V x[N], y[N];
+    for (int i = 0; i < N; ++i) x[i] = vload<V>(tmp + i * N + c0);
+    T::fwd(x, y);
+    for (int k = 0; k < N; ++k) vstore(out + k * N + c0, (y[k] + r2) >> s2);
   }
 }
-const int32_t* dst4_matrix() { return kDst4; }
 
-void fwd_xform(const int32_t* resi, int n, int bd, bool dst, int32_t* out) {
-  const int32_t* t = dst ? kDst4 : dct_matrix(n);
-  int log2n = ilog2(n);
-  int s1 = log2n + bd - 9, s2 = log2n + 6;
-  int32_t r1 = 1 << (s1 - 1), r2 = 1 << (s2 - 1);
-  // int32 accumulation is exact: stage 1 |sum| <= 32 * 90 * 65535 < 2^31
-  // even at 16-bit depth; stage-1 outputs are <= 90 << 9 after the s1
-  // shift, so stage 2 |sum| <= 32 * 90 * 46080 < 2^31 — every dot
-  // product below stays in SIMD int32 lanes.
-  int32_t tmp[32 * 32];
-  // stage 1 stored TRANSPOSED (tmp[k][i] = resi_row_i . t_row_k) so that
-  // stage 2 reads stride-1 rows from both operands
-  for (int i = 0; i < n; ++i) {
-    const int32_t* rr = resi + i * n;
-    for (int k = 0; k < n; ++k) {
-      const int32_t* tk = t + k * n;
-      int32_t acc = 0;
-      for (int j = 0; j < n; ++j) acc += rr[j] * tk[j];
-      tmp[k * n + i] = (acc + r1) >> s1;
+// inverse: stage 1 vertical (columns as lanes) clipped to 16 bits,
+// stage 2 horizontal (rows as lanes, transposed in and out) clipped to
+// pel_t's range (Pel protection, TComTrQuant.cpp:966; none at pel32)
+template <int N, class T>
+void inv_2d(const int32_t* coef, int bd, int32_t* out) {
+  using V = Lanes<N>;
+  constexpr int W = sizeof(V) / sizeof(int32_t);
+  const int s2 = 20 - bd;
+  const int32_t r2 = 1 << (s2 - 1);
+  alignas(32) int32_t tmp[N * N];
+  for (int c0 = 0; c0 < N; c0 += W) {
+    V x[N], y[N];
+    for (int k = 0; k < N; ++k) x[k] = vload<V>(coef + k * N + c0);
+    T::inv(x, y);
+    for (int i = 0; i < N; ++i)
+      vstore(tmp + i * N + c0, vclamp((y[i] + 64) >> 7, -32768, 32767));
+  }
+  for (int i0 = 0; i0 < N; i0 += W) {
+    V x[N], y[N];
+    for (int c0 = 0; c0 < N; c0 += W) {
+      V t[W];
+      for (int r = 0; r < W; ++r) t[r] = vload<V>(tmp + (i0 + r) * N + c0);
+      transpose(t);
+      for (int r = 0; r < W; ++r) x[c0 + r] = t[r];
+    }
+    T::inv(x, y);
+    for (int j0 = 0; j0 < N; j0 += W) {
+      V t[W];
+      for (int r = 0; r < W; ++r) {
+        t[r] = (y[j0 + r] + r2) >> s2;
+        if constexpr (sizeof(pel_t) < sizeof(int32_t))
+          t[r] = vclamp(t[r], std::numeric_limits<pel_t>::min(),
+                        std::numeric_limits<pel_t>::max());
+      }
+      transpose(t);
+      for (int r = 0; r < W; ++r) vstore(out + (i0 + r) * N + j0, t[r]);
     }
   }
-  // out[k][c] = t_row_k . tmp_row_c (both stride-1)
-  for (int k = 0; k < n; ++k) {
-    const int32_t* tk = t + k * n;
-    for (int c = 0; c < n; ++c) {
-      const int32_t* tc = tmp + c * n;
-      int32_t acc = 0;
-      for (int i = 0; i < n; ++i) acc += tk[i] * tc[i];
-      out[k * n + c] = (acc + r2) >> s2;
-    }
+}
+
+}  // namespace
+
+void fwd_xform(const int32_t* resi, int n, int bd, bool dst, int32_t* out) {
+  trace::xform();
+  if (dst) return fwd_2d<4, Dst4>(resi, bd, out);
+  switch (n) {
+    case 4: return fwd_2d<4, Dct<4, v4si>>(resi, bd, out);
+    case 8: return fwd_2d<8, Dct<8, v8si>>(resi, bd, out);
+    case 16: return fwd_2d<16, Dct<16, v8si>>(resi, bd, out);
+    default: return fwd_2d<32, Dct<32, v8si>>(resi, bd, out);
   }
 }
 
 void inv_xform(const int32_t* coef, int n, int bd, bool dst, int32_t* out) {
-  const int32_t* t = dst ? kDst4 : dct_matrix(n);
-  int s2 = 20 - bd;
-  int32_t r2 = 1 << (s2 - 1);
-  // int32 accumulation exact (coeffs clip to 16 bits, stage-1 output
-  // clips to 16 bits): |sum| <= 32 * 90 * 32768 < 2^31
-  int32_t tmp[32 * 32];
-  // tmp[i][c] = clip16((sum_k t[k][i] * coef[k][c] + 64) >> 7), built as
-  // rank-1 updates over k so both streams are stride-1
-  for (int i = 0; i < n * n; ++i) tmp[i] = 64;
-  for (int k = 0; k < n; ++k) {
-    const int32_t* tk = t + k * n;
-    const int32_t* ck = coef + k * n;
-    for (int i = 0; i < n; ++i) {
-      const int32_t tv = tk[i];
-      int32_t* ti = tmp + i * n;
-      for (int c = 0; c < n; ++c) ti[c] += tv * ck[c];
-    }
-  }
-  for (int i = 0; i < n * n; ++i)
-    tmp[i] = std::min(32767, std::max(-32768, tmp[i] >> 7));
-  // out = clip_pel((tmp @ T + r2) >> s2), rank-1 updates over c
-  for (int i = 0; i < n; ++i) {
-    int32_t acc32[32];
-    for (int j = 0; j < n; ++j) acc32[j] = r2;
-    const int32_t* ti = tmp + i * n;
-    for (int c = 0; c < n; ++c) {
-      const int32_t tv = ti[c];
-      const int32_t* tc = t + c * n;
-      for (int j = 0; j < n; ++j) acc32[j] += tv * tc[j];
-    }
-    for (int j = 0; j < n; ++j) {
-      int64_t v = acc32[j] >> s2;
-      // second-stage clip = Pel-type protection, not normative (reference
-      // TComTrQuant.cpp:966): +-32767 for int16 samples, no-op at pel32
-      out[i * n + j] = (int32_t)std::min<int64_t>(
-          std::numeric_limits<pel_t>::max(),
-          std::max<int64_t>(std::numeric_limits<pel_t>::min(), v));
-    }
+  trace::xform();
+  if (dst) return inv_2d<4, Dst4>(coef, bd, out);
+  switch (n) {
+    case 4: return inv_2d<4, Dct<4, v4si>>(coef, bd, out);
+    case 8: return inv_2d<8, Dct<8, v8si>>(coef, bd, out);
+    case 16: return inv_2d<16, Dct<16, v8si>>(coef, bd, out);
+    default: return inv_2d<32, Dct<32, v8si>>(coef, bd, out);
   }
 }
 
@@ -253,8 +447,6 @@ int64_t had4(const int32_t d[16]) {
 // an in-register 8x8 transpose. Values stay within int32: |input| <
 // 2^16 gains at most 64x through H(.)H, and the 64-term |.| sum tops
 // out below 2^29.
-typedef int32_t v8si __attribute__((vector_size(32)));
-
 static inline void had8_stage(v8si r[8]) {
   v8si a0 = r[0] + r[4], a1 = r[1] + r[5], a2 = r[2] + r[6],
        a3 = r[3] + r[7];
@@ -264,33 +456,6 @@ static inline void had8_stage(v8si r[8]) {
   v8si e0 = b0 + b2, e1 = b1 + b3, e2 = b0 - b2, e3 = b1 - b3;
   r[0] = c0 + c1; r[1] = c0 - c1; r[2] = c2 + c3; r[3] = c2 - c3;
   r[4] = e0 + e1; r[5] = e0 - e1; r[6] = e2 + e3; r[7] = e2 - e3;
-}
-
-static inline void transpose8(v8si r[8]) {
-  v8si a0 = __builtin_shufflevector(r[0], r[1], 0, 8, 1, 9, 4, 12, 5, 13);
-  v8si a1 = __builtin_shufflevector(r[0], r[1], 2, 10, 3, 11, 6, 14, 7, 15);
-  v8si a2 = __builtin_shufflevector(r[2], r[3], 0, 8, 1, 9, 4, 12, 5, 13);
-  v8si a3 = __builtin_shufflevector(r[2], r[3], 2, 10, 3, 11, 6, 14, 7, 15);
-  v8si a4 = __builtin_shufflevector(r[4], r[5], 0, 8, 1, 9, 4, 12, 5, 13);
-  v8si a5 = __builtin_shufflevector(r[4], r[5], 2, 10, 3, 11, 6, 14, 7, 15);
-  v8si a6 = __builtin_shufflevector(r[6], r[7], 0, 8, 1, 9, 4, 12, 5, 13);
-  v8si a7 = __builtin_shufflevector(r[6], r[7], 2, 10, 3, 11, 6, 14, 7, 15);
-  v8si b0 = __builtin_shufflevector(a0, a2, 0, 1, 8, 9, 4, 5, 12, 13);
-  v8si b1 = __builtin_shufflevector(a0, a2, 2, 3, 10, 11, 6, 7, 14, 15);
-  v8si b2 = __builtin_shufflevector(a1, a3, 0, 1, 8, 9, 4, 5, 12, 13);
-  v8si b3 = __builtin_shufflevector(a1, a3, 2, 3, 10, 11, 6, 7, 14, 15);
-  v8si b4 = __builtin_shufflevector(a4, a6, 0, 1, 8, 9, 4, 5, 12, 13);
-  v8si b5 = __builtin_shufflevector(a4, a6, 2, 3, 10, 11, 6, 7, 14, 15);
-  v8si b6 = __builtin_shufflevector(a5, a7, 0, 1, 8, 9, 4, 5, 12, 13);
-  v8si b7 = __builtin_shufflevector(a5, a7, 2, 3, 10, 11, 6, 7, 14, 15);
-  r[0] = __builtin_shufflevector(b0, b4, 0, 1, 2, 3, 8, 9, 10, 11);
-  r[4] = __builtin_shufflevector(b0, b4, 4, 5, 6, 7, 12, 13, 14, 15);
-  r[1] = __builtin_shufflevector(b1, b5, 0, 1, 2, 3, 8, 9, 10, 11);
-  r[5] = __builtin_shufflevector(b1, b5, 4, 5, 6, 7, 12, 13, 14, 15);
-  r[2] = __builtin_shufflevector(b2, b6, 0, 1, 2, 3, 8, 9, 10, 11);
-  r[6] = __builtin_shufflevector(b2, b6, 4, 5, 6, 7, 12, 13, 14, 15);
-  r[3] = __builtin_shufflevector(b3, b7, 0, 1, 2, 3, 8, 9, 10, 11);
-  r[7] = __builtin_shufflevector(b3, b7, 4, 5, 6, 7, 12, 13, 14, 15);
 }
 
 int64_t had8(const int32_t d[64]) {

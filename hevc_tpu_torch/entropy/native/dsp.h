@@ -2,7 +2,7 @@
 // quantization, motion-compensation interpolation, intra prediction, SATD.
 //
 // Parity: reference TComTrQuant.cpp (xQuant:1126 / xDeQuant:1314, partial
-// butterflies :441-900 — realised here as integer matrix products),
+// butterflies :441-900 — realised here per block size on int32 SIMD lanes),
 // TComInterpolationFilter.cpp:57-392, TComPrediction.cpp predIntraAng,
 // TComRdCost.cpp xCalcHADs8x8. All routines are the C++ twins of the
 // verified numpy implementations in hevc_tpu/ops/{transform,quant,interp,
@@ -28,11 +28,9 @@ using pel_t = int16_t;
 
 namespace dsp {
 
-// n-point HEVC core transform matrix (row-major n*n), derived from the 33
-// distinct spec coefficients via cosine-index folding (spec 8.6.4.2).
-const int32_t* dct_matrix(int n);
-const int32_t* dst4_matrix();
-
+// HEVC core transforms (spec 8.6.4.2), n in {4, 8, 16, 32}, the 4-point
+// DST-VII where dst is set; one instance per size (dsp.cpp). Each call
+// counts as trace::xform (engine.h).
 // residual[n*n] int32 -> coeff[n*n] int32 (horizontal stage first).
 void fwd_xform(const int32_t* resi, int n, int bd, bool dst, int32_t* out);
 // coeff[n*n] -> residual[n*n] (vertical stage first, 16-bit clamps).

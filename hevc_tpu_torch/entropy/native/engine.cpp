@@ -40,6 +40,7 @@ void Frame::add(const Sums& s) {
   sum_.wait += s.wait;
   sum_.row_switches += s.row_switches;
   sum_.intra_rd_modes += s.intra_rd_modes;
+  sum_.xforms += s.xforms;
 }
 
 Frame::~Frame() {
@@ -60,6 +61,7 @@ Frame::~Frame() {
   g_totals[kFrames] += 1;
   g_totals[kRowSwitches] += sum_.row_switches;
   g_totals[kIntraRdModes] += sum_.intra_rd_modes;
+  g_totals[kXforms] += sum_.xforms;
 }
 }  // namespace trace
 }  // namespace hevctpu

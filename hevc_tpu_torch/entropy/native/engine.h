@@ -33,9 +33,9 @@ namespace hevctpu {
 // the wall time of its encode_ctu calls (busy) into disjoint RD stages —
 // the innermost open Stage owns the time, what no Stage claims goes to
 // kOther — the time it waits for a CTU that is ready to code, the times a
-// CTU row changes hands, and the intra modes it takes through full RD. The
-// sums live in thread-local storage and reach the frame's totals once, when
-// the thread's Worker ends. Times are TSC ticks, scaled to nanoseconds per
+// CTU row changes hands, the intra modes it takes through full RD and the
+// core transforms it runs. The sums live in thread-local storage and reach
+// the frame's totals once, when the thread's Worker ends. Times are TSC ticks, scaled to nanoseconds per
 // frame against CLOCK_MONOTONIC (Frame). Off, a scope costs one branch.
 namespace trace {
 enum StageId { kIntra, kMerge, kInterSearch, kResidual, kOther, kStages };
@@ -44,6 +44,7 @@ struct Sums {
   long long busy, wait;
   long long row_switches;  // a count, not ticks
   long long intra_rd_modes;  // a count
+  long long xforms;          // a count
 };
 struct Thread {
   bool on = false;
@@ -54,9 +55,9 @@ struct Thread {
 extern std::atomic<bool> g_on;
 extern thread_local Thread tl;
 // process-wide totals (ns; then counts: traced frames, row switches, intra
-// modes through full RD), in this order
+// modes through full RD, core transforms), in this order
 enum Total { kBusy, kWait, kThreadWall, kStage0, kFrames = kStage0 + kStages,
-             kRowSwitches, kIntraRdModes, kTotals };
+             kRowSwitches, kIntraRdModes, kXforms, kTotals };
 void totals(long long* out);
 
 inline long long ticks() {
@@ -151,6 +152,12 @@ inline void row_switch() {
 // transformed, quantised and reconstructed, its rate counted.
 inline void intra_rd_mode() {
   if (Thread* t = active()) ++t->s.intra_rd_modes;
+}
+
+// One core transform, forward or inverse, of any size (dsp::fwd_xform,
+// dsp::inv_xform).
+inline void xform() {
+  if (Thread* t = active()) ++t->s.xforms;
 }
 
 // One engine frame call: the switch as it stood at the call's start, its

@@ -156,9 +156,10 @@ def test_intra_counters_read_nothing_with_tracing_off(runs):
     assert runs["on"][1][0]["engine_intra_rd_modes"] > 0
 
 
-def _intra_rd_modes(w, h, planes):
-    """The engine's count of intra modes taken through full RD over one
-    all-intra picture of w x h, coded with tracing on."""
+def _intra_engine_counts(w, h, planes, traced=True):
+    """The engine's trace counts (ENGINE_TRACE_COUNTS of them: traced frame
+    calls, row switches, intra modes through full RD, core transforms) over
+    one all-intra picture of w x h, coded with tracing on or off."""
     from hevc_tpu_torch.encoder.top import EncoderTop
     from hevc_tpu_torch.io.cfg import parse_cli, validate
     cfg = parse_cli(["-c", INTRA_CFG, "-wdt", str(w), "-hgt", str(h),
@@ -166,7 +167,7 @@ def _intra_rd_modes(w, h, planes):
     validate(cfg)
     enc = EncoderTop(cfg, device="cpu")
     timers.reset()
-    timers.enabled = True
+    timers.enabled = traced
     try:
         e0 = cabac.engine_frame_stats()
         enc.encode_frame([np.ascontiguousarray(p) for p in planes])
@@ -174,8 +175,16 @@ def _intra_rd_modes(w, h, planes):
     finally:
         timers.enabled = False
         timers.reset()
-    assert e1["engine_traced_frames"] - e0["engine_traced_frames"] == 1
-    return e1["engine_intra_rd_modes"] - e0["engine_intra_rd_modes"]
+    return {k: e1[k] - e0[k]
+            for k in cabac.ENGINE_TRACE_KEYS[-cabac.ENGINE_TRACE_COUNTS:]}
+
+
+def _intra_rd_modes(w, h, planes):
+    """The engine's count of intra modes taken through full RD over one
+    all-intra picture of w x h, coded with tracing on."""
+    counts = _intra_engine_counts(w, h, planes)
+    assert counts["engine_traced_frames"] == 1
+    return counts["engine_intra_rd_modes"]
 
 
 def test_engine_intra_rd_modes_grow_with_the_cus():
@@ -185,6 +194,18 @@ def test_engine_intra_rd_modes_grow_with_the_cus():
     small = _intra_rd_modes(64, 64, [y[:64, :64], u[:32, :32], v[:32, :32]])
     big = _intra_rd_modes(192, 128, [y, u, v])
     assert 0 < small < big
+
+
+def test_engine_xforms_count_only_while_traced():
+    """A traced 128x80 all-intra picture counts its core transforms: each
+    exact-RD mode trial transforms its residual, and so does every coded
+    TB. Untraced, no engine count moves."""
+    y, u, v = moving_frames(1, 128, 80)[0]
+    on = _intra_engine_counts(128, 80, [y, u, v], traced=True)
+    assert on["engine_traced_frames"] == 1
+    assert on["engine_xforms"] > on["engine_intra_rd_modes"] > 0
+    off = _intra_engine_counts(128, 80, [y, u, v], traced=False)
+    assert off == dict.fromkeys(off, 0)
 
 
 def test_h2d_bytes_are_the_uploads_sizes(runs):
@@ -270,7 +291,8 @@ _ENGINE_AND_LOOP = (
     "engine_residual_ms_per_frame", "engine_other_ms_per_frame",
     "engine_host_ms_p90", "lookahead_ms_per_frame",
     "frame_setup_ms_per_frame", "stream_write_ms_per_frame",
-    "h2d_mb_per_frame", "engine_row_switches_per_frame")
+    "h2d_mb_per_frame", "engine_row_switches_per_frame",
+    "engine_xforms_per_frame")
 TRACE_METRICS = {
     "ldp_main.e720_static": _ENGINE_AND_LOOP + (
         "engine_merge_ms_per_frame", "engine_inter_search_ms_per_frame",

@@ -510,7 +510,6 @@ class DecoderTop:
                 mask_y = np.repeat(np.repeat(byp4, 4, 0), 4, 1)[:h, :w]
                 byp_saved = (mask_y, [p.copy() for p in recon])
         if not sh.slice_deblocking_filter_disabled_flag:
-            from ..ops import deblock
             qmap = None
             if pps.cu_qp_delta_enabled_flag and pic.get("qp4"):
                 # assemble the frame per-4x4 QP map from the per-CTU
@@ -522,22 +521,12 @@ class DecoderTop:
                     y0, x0 = cy * n4, cx * n4
                     qmap[y0:y0 + n4, x0:x0 + n4] = \
                         tile[:h4 - y0, :w4 - x0]
-            import os as _os
-            if _os.environ.get("HEVC_TPU_NATIVE_DEBLOCK", "1") != "0":
-                recon = cabac.deblock_frame_native(
-                    recon, decisions, sps, sh.slice_qp,
-                    (pic["ref_l0"], pic["ref_l1"]),
-                    sh.slice_beta_offset_div2, sh.slice_tc_offset_div2,
-                    qp_map=qmap, cb_qp_offset=pps.pps_cb_qp_offset,
-                    cr_qp_offset=pps.pps_cr_qp_offset)
-            else:
-                dmaps = deblock.build_maps(decisions, sps,
-                                           (pic["ref_l0"], pic["ref_l1"]))
-                deblock.deblock_frame(recon, dmaps, sh.slice_qp, sps,
-                                      sh.slice_beta_offset_div2,
-                                      sh.slice_tc_offset_div2, qp_map=qmap,
-                                      cb_qp_offset=pps.pps_cb_qp_offset,
-                                      cr_qp_offset=pps.pps_cr_qp_offset)
+            recon = cabac.deblock_frame_native(
+                recon, decisions, sps, sh.slice_qp,
+                (pic["ref_l0"], pic["ref_l1"]),
+                sh.slice_beta_offset_div2, sh.slice_tc_offset_div2,
+                qp_map=qmap, cb_qp_offset=pps.pps_cb_qp_offset,
+                cr_qp_offset=pps.pps_cr_qp_offset)
         if sh.slice_sao_luma_flag or sh.slice_sao_chroma_flag:
             if sps.chroma_format_idc == 1:
                 from ..entropy.cabac import sao_apply_native

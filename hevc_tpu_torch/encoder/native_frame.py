@@ -8,22 +8,21 @@ transforms, fractional refinement) runs in the native engine
 (entropy/native/engine.cpp) while the frame-wide integer motion search runs
 batched on the device (ops/me_ssd.py). The same orchestration runs on a
 card and on the CPU (where the kernels' plain versions stand in), so the
-CPU tests exercise what the card runs. 4:2:0 only; the pure-Python
-encoders remain the reference path (HEVC_TPU_NATIVE_RECON=0) and the 4:4:4
-path.
+CPU tests exercise what the card runs. 4:2:0, and 4:4:4 all-intra; the
+pure-Python encoders take lossless, 4:2:2 and 4:4:4 inter. EncoderTop owns
+the device work: it hands this encoder each picture's search and intra
+prescreen as resolvers.
 """
 from __future__ import annotations
 
 import math
-import os as _os
-from typing import List, Optional
+from typing import List
 
 import numpy as np
 
 from .. import runtime
 from ..entropy.cabac import (EngineParamsC, NativeCtuEngine, SliceDataEncoder,
                              SliceParamsC)
-from ..ops.interp import pad_plane
 from ..utils.timing import timers
 
 PAD = 80
@@ -74,77 +73,32 @@ def batched_me_grid(orig_y: np.ndarray, ref_padded_y: np.ndarray, size: int,
 
 
 class NativeFrameEncoder:
-    def __init__(self, sps, qp: int, senc: SliceDataEncoder,
-                 sp: SliceParamsC, *, qp_factor: float = 0.57,
-                 is_b: bool = False, ref_planes=None, ref1_planes=None,
-                 search_range: int = 24, cu_depth_target: int = 1,
-                 me_provider=None, ref_dev=None, ref1_dev=None,
-                 intra_screen=None, lam: Optional[float] = None,
-                 mesh=None, mesh_axis: Optional[str] = None,
-                 me_prefetch=None, ref_pocs=None, ref1_pocs=None,
-                 refs_padded: bool = False, wp0=None, wp1=None,
-                 device="cuda"):
-        """ref_planes / ref1_planes: a single [Y, Cb, Cr] plane list or a
-        list of them — one entry per active reference of the list
+    def __init__(self, sps, senc: SliceDataEncoder, sp: SliceParamsC, *,
+                 lam: float, is_b: bool = False, ref_planes=None,
+                 ref1_planes=None, grids=None, intra_hints=None):
+        """ref_planes / ref1_planes: per active reference of each list
         (reference TEncSearch::predInterSearch per-refIdx loop,
-        TEncSearch.cpp:3027). ref_dev: optional per-list-0-ref device
-        arrays of the padded Y planes (encoder reference cache)."""
+        TEncSearch.cpp:3027), its [Y, Cb, Cr] planes padded by PAD
+        (EncoderTop._padded_ref). The encoder searches nothing itself:
+        `grids` (inter pictures) is EncoderTop's zero-arg resolver of the
+        picture's integer motion search, (l0, l1) with one
+        (gx, gy, gx2, gy2[, refine tables]) per reference of each list, and
+        `intra_hints` (I pictures) its resolver of the device intra
+        prescreen."""
         assert sps.chroma_format_idc in (1, 3), \
             "native engine supports 4:2:0 and 4:4:4"
         assert sps.chroma_format_idc == 1 or ref_planes is None, \
             "native 4:4:4 is intra-only (inter 4:4:4 takes the Python path)"
         self.sps = sps
-        self.qp = qp
         self.senc = senc
         self.sp = sp
         self.is_inter = ref_planes is not None
-        if lam is None:  # fallback; EncoderTop passes the exact HM pic
-            lam = qp_factor * (2.0 ** ((qp - 12) / 3.0))  # lambda in
         self.sqrt_lam = math.sqrt(lam)
-        self.lam_fp = int(65536.0 * self.sqrt_lam)
-        self.search_range = search_range
-        self.cu_depth_target = cu_depth_target
         self.is_b = is_b
-        # multi-device: a parallel.Mesh splits every grid's block rows
-        # over its devices — the same grids, so the same stream
-        self.mesh = mesh
-        self.device = runtime.resolve_device(device)
-
-        def norm(refs):
-            if refs is None:
-                return None
-            if len(refs) and isinstance(refs[0], np.ndarray):
-                refs = [refs]
-            if refs_padded:  # caller passed EncoderTop._padded_ref output
-                return refs
-            pdt = np.int16 if sps.bit_depth_luma <= 14 else np.int32
-            return [[np.ascontiguousarray(
-                pad_plane(np.asarray(p, pdt), PAD)) for p in r]
-                    for r in refs]
-
-        self.ref = norm(ref_planes)
-        self.ref1 = norm(ref1_planes) if ref1_planes is not None else self.ref
-        self.ref_dev = ref_dev or []
-        self.ref1_dev = ref1_dev or []
-        # optional callable(size, range, lam_fp) -> (gx, gy) or None:
-        # precomputed (mesh-sharded lookahead) integer-ME grids (ref 0)
-        self.me_provider = me_provider
-        # optional zero-arg resolver -> {ref cvs_poc: (gx, gy, gx2, gy2)}
-        # covering BOTH lists: EncoderTop's one-frame ME lookahead — the
-        # search was dispatched during the previous frame's encode and
-        # has already computed under that frame's host work
-        self.me_prefetch = me_prefetch
-        self.ref_pocs = ref_pocs
-        # per-ref luma weighted-prediction triples (w, o, denom) or None
-        # per entry: the integer search then measures weighted distortion
-        # (reference TComRdCostWeightPrediction weighted SAD/SSE)
-        self.wp0 = wp0
-        self.wp1 = wp1
-        self.ref1_pocs = ref1_pocs
-        # optional zero-arg resolver for an already-dispatched device
-        # intra prescreen of this picture's source (EncoderTop's
-        # lookahead hides the device round trip behind earlier host work)
-        self.intra_screen = intra_screen
+        self.ref = ref_planes
+        self.ref1 = ref1_planes if ref1_planes is not None else ref_planes
+        self.grids = grids
+        self.intra_hints = intra_hints
 
     def encode_frame(self, orig: List[np.ndarray], slices=None):
         """slices: optional [(sp_i, senc_i, [(cx, cy), ...]), ...] for
@@ -165,185 +119,29 @@ class NativeFrameEncoder:
         me_x = me_y = me16_x = me16_y = me1_x = me1_y = None
         rf_tables = []  # device fractional-refine tables
         if self.is_inter:
-            size = ctu >> self.cu_depth_target
-            depth = self.sps.bit_depth_luma
             with timers.section("me_device"):
-                me_x, me_y = [], []
-                # the 16-grid (deeper inter quadtree) is on by default and
-                # rides the same device dispatch as the CU-grid search
-                want16 = (_os.environ.get("HEVC_TPU_CU16", "1") != "0"
-                          and size > 16)
-                n0, n1 = len(self.ref), len(self.ref1) if self.is_b else 0
-                prefetched = self.me_prefetch is not None and want16
-                timers.add("me_searched")
-                if prefetched:
-                    timers.add("me_lookahead_taken")
-                if prefetched:
-                    # the one-frame lookahead already dispatched this frame's
-                    # whole search (both lists, both grid sizes) during the
-                    # PREVIOUS frame's encode; resolving here only waits out
-                    # whatever device time was not hidden under host work
-                    pre = self.me_prefetch()
-                    me_x = [pre[p][0] for p in self.ref_pocs]
-                    me_y = [pre[p][1] for p in self.ref_pocs]
-                    me16_x = [pre[p][2] for p in self.ref_pocs]
-                    me16_y = [pre[p][3] for p in self.ref_pocs]
-                    if any(g is None for g in me16_x):
-                        me16_x = me16_y = None
-                    if self.is_b:
-                        me1_x = [pre[p][0] for p in self.ref1_pocs]
-                        me1_y = [pre[p][1] for p in self.ref1_pocs]
-                    for ri, p in enumerate(self.ref_pocs):
-                        ext = pre[p][4] if len(pre[p]) > 4 else None
-                        if ext:
-                            rf_tables.append((0, ri, ext["off32"],
-                                              ext["half32"]))
-                            rf_tables.append((1, ri, ext["off16"],
-                                              ext["half16"]))
-                    if self.is_b:
-                        for ri, p in enumerate(self.ref1_pocs):
-                            ext = pre[p][4] if len(pre[p]) > 4 else None
-                            if ext:
-                                rf_tables.append((2, ri, ext["off32"],
-                                                  ext["half32"]))
-                # one upload of the source plane serves every ref's search
-                orig_dev = None
-                if not prefetched:
-                    from ..ops.me_ssd import me_dtype
-                    orig_dev = runtime.upload(orig[0].astype(me_dtype(depth)),
-                                              self.device)
-                all_dev = (orig_dev is not None and self.me_provider is None
-                           and _os.environ.get("HEVC_TPU_ME_MULTI", "1") != "0"
-                           and len(self.ref_dev) >= n0
-                           and all(d is not None for d in self.ref_dev[:n0])
-                           and (not self.is_b or (
-                               len(self.ref1_dev) >= n1
-                               and all(d is not None
-                                       for d in self.ref1_dev[:n1]))))
-                if all_dev:
-                    # BOTH lists' references (and both grid sizes) in one
-                    # launch sequence and one readback: the reference
-                    # searches each refIdx of each list separately
-                    # (TEncSearch.cpp:3027); here the unique reference
-                    # pictures are searched once each. Duplicate POCs
-                    # across L0/L1 (low-delay B) collapse to a single
-                    # search.
-                    from ..ops import me_ssd
-                    uniq, slot, uniq_wp = [], {}, []
-                    wps = ((list(self.wp0 or []) + [None] * n0)[:n0]
-                           + (list(self.wp1 or []) + [None] * n1)[:n1])
-                    for d, t in zip(self.ref_dev[:n0] + self.ref1_dev[:n1],
-                                    wps):
-                        if id(d) not in slot:
-                            slot[id(d)] = len(uniq)
-                            uniq.append(d)
-                            uniq_wp.append(t)
-                    l0s = [slot[id(d)] for d in self.ref_dev[:n0]]
-                    l1s = [slot[id(d)] for d in self.ref1_dev[:n1]]
-                    # default OFF — see encoder/top.py _rf(); none under a
-                    # mesh, as in the reference
-                    want_rf = (self.mesh is None and _os.environ.get(
-                        "HEVC_TPU_ME_REFINE", "0") == "1")
-                    if want16:
-                        out = me_ssd.me_grids_multi2(
-                            orig_dev, uniq, size, 16, self.search_range,
-                            self.lam_fp, pad=PAD, depth=depth, mesh=self.mesh,
-                            wp=uniq_wp, refine=want_rf)
-                    else:
-                        out = [(gx, gy, None, None) for gx, gy in
-                               me_ssd.me_grids_multi(
-                                   orig_dev, uniq, size, self.search_range,
-                                   self.lam_fp, pad=PAD, depth=depth,
-                                   mesh=self.mesh)]
-                    me_x = [out[i][0] for i in l0s]
-                    me_y = [out[i][1] for i in l0s]
-                    if want16:
-                        me16_x = [out[i][2] for i in l0s]
-                        me16_y = [out[i][3] for i in l0s]
-                        if any(g is None for g in me16_x):
-                            me16_x = me16_y = None
-                    if self.is_b:
-                        me1_x = [out[i][0] for i in l1s]
-                        me1_y = [out[i][1] for i in l1s]
-                    for ri, i in enumerate(l0s):
-                        ext = out[i][4] if len(out[i]) > 4 else None
-                        if ext:
-                            rf_tables.append((0, ri, ext["off32"],
-                                              ext["half32"]))
-                            rf_tables.append((1, ri, ext["off16"],
-                                              ext["half16"]))
-                    for ri, i in enumerate(l1s):
-                        ext = out[i][4] if len(out[i]) > 4 else None
-                        if ext:
-                            rf_tables.append((2, ri, ext["off32"],
-                                              ext["half32"]))
-                elif not prefetched:
-                    for r, ref in enumerate(self.ref):
-                        pre = (self.me_provider(size, self.search_range,
-                                                self.lam_fp)
-                               if r == 0 and self.me_provider else None)
-                        dev = (self.ref_dev[r] if r < len(self.ref_dev)
-                               else None)
-                        wpv = (self.wp0[r] if self.wp0 and r < len(self.wp0)
-                               else None)
-                        gx, gy = pre if pre is not None else batched_me_grid(
-                            orig[0], ref[0], size, self.search_range,
-                            self.lam_fp, ref_dev=dev, orig_dev=orig_dev,
-                            depth=depth, wpv=wpv, device=self.device)
-                        me_x.append(gx)
-                        me_y.append(gy)
-                    if want16:
-                        me16_x, me16_y = [], []
-                        for r, ref in enumerate(self.ref):
-                            dev = (self.ref_dev[r]
-                                   if r < len(self.ref_dev) else None)
-                            wpv = (self.wp0[r]
-                                   if self.wp0 and r < len(self.wp0) else None)
-                            gx, gy = batched_me_grid(
-                                orig[0], ref[0], 16,
-                                min(self.search_range, 16), self.lam_fp,
-                                ref_dev=dev, orig_dev=orig_dev, depth=depth,
-                                wpv=wpv, device=self.device)
-                            me16_x.append(gx)
-                            me16_y.append(gy)
-                        if any(g is None for g in me16_x):
-                            me16_x = me16_y = None
-                if (self.is_b and self.ref1 is not None and not all_dev
-                        and not prefetched):
-                    # list-1 integer search (B slices; reference
-                    # predInterSearch list-1 loop)
-                    me1_x, me1_y = [], []
-                    for r, ref in enumerate(self.ref1):
-                        dev = self.ref1_dev[r] if r < len(self.ref1_dev) \
-                            else None
-                        wpv = (self.wp1[r] if self.wp1 and r < len(self.wp1)
-                               else None)
-                        gx, gy = batched_me_grid(
-                            orig[0], ref[0], size, self.search_range,
-                            self.lam_fp, ref_dev=dev, orig_dev=orig_dev,
-                            depth=depth, wpv=wpv, device=self.device)
-                        me1_x.append(gx)
-                        me1_y.append(gy)
+                l0, l1 = self.grids()
+            l1 = l1 if self.is_b else []
+            me_x, me_y, me16_x, me16_y = ([g[k] for g in l0] for k in range(4))
+            if any(g is None for g in me16_x):
+                me16_x = me16_y = None
+            if self.is_b:
+                me1_x, me1_y = ([g[k] for g in l1] for k in range(2))
+            # refine levels: 0 and 1 are list 0's CU and 16 grids, 2 is
+            # list 1's CU grid
+            for lvl, grids, key in ((0, l0, "32"), (1, l0, "16"),
+                                    (2, l1, "32")):
+                for ri, g in enumerate(grids):
+                    if len(g) > 4 and g[4]:
+                        rf_tables.append((lvl, ri, g[4]["off" + key],
+                                          g[4]["half" + key]))
         intra_hints = None
-        if (self.sp.slice_type == 2 and _os.environ.get(
-                "HEVC_TPU_INTRA_SCREEN", "1") != "0"):
-            # device 35-mode prescreen: per-block candidate mode lists
-            # for the whole frame in batched launches (all depths
-            # through 16 — the screen carries int32 planes above 14
-            # and its SATD accumulation stays within int32)
-            timers.add("intra_screened")
-            if self.intra_screen is not None:
-                timers.add("intra_lookahead_taken")
+        if self.intra_hints is not None:
             with timers.section("intra_device"):
-                if self.intra_screen is not None:
-                    intra_hints = self.intra_screen()
-                else:
-                    from ..ops.intra_screen import screen_frame
-                    intra_hints = screen_frame(
-                        orig[0], sps.bit_depth_luma, self.sqrt_lam,
-                        device=self.device)
+                intra_hints = self.intra_hints()
+        # the search's CU grid is ctu >> 1 (EncoderTop._dispatch_search)
         ep = EngineParamsC(
-            pad=PAD, cu_depth_target=self.cu_depth_target,
+            pad=PAD, cu_depth_target=1,
             strong_smoothing=sps.strong_intra_smoothing_enabled_flag,
             is_b=1 if self.is_b else 0, sqrt_lam=self.sqrt_lam)
         from ..entropy.cabac import (FrameDecisions, engine_encode_frame,

@@ -91,8 +91,7 @@ def hm_pic_lambda(qp: float, gop_size: int, gop_poc: int, qp_factor: float,
 
 
 class EncoderTop:
-    def __init__(self, cfg: EncoderConfig, mesh=None,
-                 mesh_axis: Optional[str] = None, device=None):
+    def __init__(self, cfg: EncoderConfig, mesh=None, device=None):
         # the supported-surface contract (io.cfg.validate) holds for every
         # entry point, not just the CLI: library users / bench / parallel
         # get the same xConfirmPara rejects (reference TAppEncCfg.cpp:1691
@@ -115,7 +114,6 @@ class EncoderTop:
                 raise ValueError(f"EncoderTop: device {device!r} is not "
                                  f"the mesh's first device {self.device}")
         self.mesh = mesh
-        self.mesh_axis = mesh_axis
         # conformance window (reference TAppEncCfg "ConformanceMode" /
         # "ConfWin*" + TVideoIOYuv edge padding; spec 7.4.3.2.1): mode 1
         # pads the coded dimensions up to the min-CU multiple, mode 2
@@ -226,8 +224,7 @@ class EncoderTop:
             # lossless CUs (TComPrediction.cpp:481 enableEdgeFilters)
             self.sps.implicit_rdpcm_enabled_flag = 1
         if (cfg.cross_comp_pred and cfg.internal_chroma_format == 3
-                and cfg.intra_period == 1
-                and os.environ.get("HEVC_TPU_NATIVE_RECON", "1") != "0"):
+                and cfg.intra_period == 1):
             # cross-component prediction (4:4:4, spec 8.6.6): the native
             # intra engine predicts each chroma TB's residual from the
             # TU's reconstructed luma residual with a least-squares
@@ -257,9 +254,7 @@ class EncoderTop:
         # on every CTC low-delay encode and inflated bitrates)
         lcu_rc = cfg.lcu_rate_control and cfg.rate_control \
             and cfg.target_bitrate
-        if ((cfg.adaptive_qp or lcu_rc)
-                and cfg.internal_chroma_format == 1
-                and os.environ.get("HEVC_TPU_NATIVE_RECON", "1") != "0"):
+        if (cfg.adaptive_qp or lcu_rc) and cfg.internal_chroma_format == 1:
             # CTU-granularity quantization groups (cu_qp_delta); driven by
             # the variance preanalysis (AdaptiveQP) and/or CTU-level rate
             # control (reference TEncPic/TEncPreanalyzer, TEncRateCtrl)
@@ -273,8 +268,7 @@ class EncoderTop:
         if (cfg.sign_hide
                 and (cfg.internal_chroma_format == 1 or
                      (cfg.internal_chroma_format == 3
-                      and cfg.intra_period == 1))
-                and os.environ.get("HEVC_TPU_NATIVE_RECON", "1") != "0"):
+                      and cfg.intra_period == 1))):
             # the native engine enforces the parity constraint (4:2:0
             # everywhere; 4:4:4 when every picture takes the native
             # intra path), including under explicit scaling matrices
@@ -458,10 +452,10 @@ class EncoderTop:
         self.stats: List[dict] = []
         self.recon = None
         self.dpb_recon = None     # last encoded recon (low-delay ref)
-        # optional hook: callable(display_poc, size, range, lam_fp) ->
-        # (gx, gy) int32 grids or None. Used by the multi-device driver to feed
-        # mesh-sharded lookahead integer-ME results into the frame encoder
-        # (the inline per-frame device search is skipped when it hits).
+        # optional hook: callable(display_poc) -> (gx, gy) int32 CU grids
+        # or None. parallel.encode_clip's lookahead mode feeds its
+        # frame-axis search through it: the grids replace list-0
+        # reference 0's CU grid (_picture_search).
         self.me_provider = None
         # reference TEncGOP::compressGOP uiColDir: the B-slice collocated
         # list alternates per coded picture, resetting to 1 per GOP batch
@@ -525,34 +519,23 @@ class EncoderTop:
         rather than at first use (TEncTop.cpp:1116 xInitOpenCL). Low-delay
         reference lists grow from one picture at the IDR, so the search
         runs once for 1, 2, 4, ... references up to the GOP's count."""
-        import os as _osm
         cfg = self.cfg
-        if (self.me_provider is not None
-                or _osm.environ.get("HEVC_TPU_WARM", "1") == "0"
-                or _osm.environ.get("HEVC_TPU_NATIVE_RECON", "1") == "0"):
+        if self.me_provider is not None:
             return
         if self.device.type == "cuda":
             runtime.build_kernels()
         depth = self.sps.bit_depth_luma
         h, w = cfg.height, cfg.width
-        if _osm.environ.get("HEVC_TPU_INTRA_SCREEN", "1") != "0":
-            # every sequence codes I slices (at least the IDR), and each
-            # I slice runs the device 35-mode prescreen
-            from ..ops.intra_screen import screen_frame_async
-            pdt = np.int16 if depth <= 14 else np.int32
-            mid = np.full((h, w), 1 << (depth - 1), pdt)
-            screen_frame_async(mid, depth, 1.0, device=self.device)()
-        if cfg.intra_period == 1:
-            return
-        if (_osm.environ.get("HEVC_TPU_ME_MULTI", "1") == "0"
-                or self.sps.chroma_format_idc != 1):
+        # every sequence codes I slices (at least the IDR), and each I
+        # slice runs the device 35-mode prescreen
+        from ..ops.intra_screen import screen_frame_async
+        pdt = np.int16 if depth <= 14 else np.int32
+        mid = np.full((h, w), 1 << (depth - 1), pdt)
+        screen_frame_async(mid, depth, 1.0, device=self.device)()
+        if cfg.intra_period == 1 or self.sps.chroma_format_idc != 1:
             return
         from ..ops import me_ssd
         from .native_frame import PAD
-        size = self.sps.ctu_size >> 1
-        want16 = (_osm.environ.get("HEVC_TPU_CU16", "1") != "0"
-                  and size > 16)
-        r = cfg.search_range
         orig = runtime.upload(np.zeros((h, w), me_ssd.me_dtype(depth)),
                               self.device)
         refp = me_ssd.pad_ref_device(orig, PAD)
@@ -568,14 +551,8 @@ class EncoderTop:
         # the tables only where the encode computes them (not under a mesh)
         rf = self.mesh is None and _rf()
         while True:
-            refs = [refp] * npad
-            if want16:
-                me_ssd.me_grids_multi2(
-                    orig, refs, size, 16, r, self.qp_lam_fp, pad=PAD,
-                    depth=depth, mesh=self.mesh, refine=rf)
-            else:
-                me_ssd.me_grids_multi(orig, refs, size, r, self.qp_lam_fp,
-                                      pad=PAD, depth=depth, mesh=self.mesh)
+            self._dispatch_search(orig, [refp] * npad, self.qp_lam_fp,
+                                  refine=rf)()
             if npad >= nmax:
                 break
             npad *= 2
@@ -595,27 +572,38 @@ class EncoderTop:
         under `picture`: the encode_frame() that codes that picture takes
         it, the device having computed it under the host work in between.
         A screen of a picture that is already coded is dropped unused."""
-        import math as _math
-        import os as _osm
-        if (self.cfg.intra_period != 1
-                or _osm.environ.get("HEVC_TPU_INTRA_SCREEN", "1") == "0"
-                or _osm.environ.get("HEVC_TPU_NATIVE_RECON", "1") == "0"):
+        if self.cfg.intra_period != 1:
             return
         from ..ops.intra_screen import screen_frame_async
         lam = 0.57 * (2.0 ** ((self.cfg.qp - 12) / 3.0))
         pdt = np.int16 if self.cfg.internal_bit_depth <= 14 else np.int32
         self._intra_screens[picture] = screen_frame_async(
             np.ascontiguousarray(planes[0], pdt),
-            self.cfg.internal_bit_depth, _math.sqrt(lam),
+            self.cfg.internal_bit_depth, math.sqrt(lam),
             device=self.device)
 
-    def _take_intra_screen(self, picture: int):
-        """The prefetched screen of display picture `picture`, or None (the
-        picture is then screened synchronously). Screens of pictures
-        before it can no longer be used and are dropped."""
-        for p in [p for p in self._intra_screens if p < picture]:
+    def _intra_hints(self, display_poc: int, src_y: np.ndarray, lam: float):
+        """The device intra prescreen of an I picture as a zero-arg
+        resolver: the lookahead's screen of display picture `display_poc`
+        when one was dispatched, else a screen of `src_y` dispatched and
+        waited for when the resolver runs. Screens of pictures before
+        `display_poc` can no longer be used and are dropped."""
+        from ..ops import intra_screen
+        for p in [p for p in self._intra_screens if p < display_poc]:
             del self._intra_screens[p]
-        return self._intra_screens.pop(picture, None)
+        taken = self._intra_screens.pop(display_poc, None)
+
+        def resolve():
+            timers.add("intra_screened")
+            if taken is not None:
+                timers.add("intra_lookahead_taken")
+                return taken()
+            depth = self.sps.bit_depth_luma
+            return intra_screen.screen_frame_async(
+                np.ascontiguousarray(src_y, np.int16 if depth <= 14
+                                     else np.int32),
+                depth, math.sqrt(lam), device=self.device)()
+        return resolve
 
     def prefetch_frame(self, planes: List[np.ndarray],
                        picture: Optional[int] = None) -> None:
@@ -640,100 +628,169 @@ class EncoderTop:
             if pic == nxt:
                 self._prefetch_me(planes)
 
-    def _next_frame_plan(self):
-        """Predict the NEXT submitted frame's coding parameters (cvs_poc,
-        slice type, QP, λ, reference POCs) from the deterministic
-        low-delay GOP structure — the same selection _encode_streaming
-        will make once the current frame is coded. Returns None when the
-        prediction is not deterministic (reordered GOPs, rate control) or
-        the next frame is intra."""
+    def _is_idr(self, poc: int) -> bool:
+        """Whether low-delay picture `poc` (display order) is an IDR."""
+        ip = self.cfg.intra_period
+        return poc == 0 or (ip > 0 and poc % ip == 0)
+
+    def _low_delay_plan(self, poc: int, dpb_pocs, last_idr: int,
+                        rc_qp: Optional[int] = None) -> dict:
+        """The coding parameters of low-delay inter picture `poc` (display
+        order) after the IDR at `last_idr`, with the pictures `dpb_pocs`
+        (CVS POCs) in the DPB: its GOP entry and that entry's index, slice
+        type, slice QP (`rc_qp`, under rate control, replaces the entry's
+        QP offset), QP factor, picture λ, the RPS deltas and the active
+        reference POCs in L0 order. The encode plans each picture here,
+        and the lookahead plans the next one with the DPB it predicts."""
         cfg = self.cfg
-        if self.reordered or self.rc is not None:
-            return None
-        npoc = self.poc + 1
-        cur_is_intra = (self.poc == 0 or
-                        (cfg.intra_period > 0 and
-                         self.poc % max(cfg.intra_period, 1) == 0))
-        if cfg.intra_period > 0 and npoc % max(cfg.intra_period, 1) == 0:
-            return None
-        last_idr = self.poc if cur_is_intra else self.last_idr_poc
-        gop_poc = npoc - last_idr
-        cur_cvs = 0 if cur_is_intra else self.poc - self.last_idr_poc
+        gop_poc = poc - last_idr
         entries = cfg.gop_entries
-        is_b = False
         if entries:
-            entry = entries[(gop_poc - 1) % len(entries)]
+            entry_idx = (gop_poc - 1) % len(entries)
+            entry = entries[entry_idx]
             qp_off, qf = entry.qp_offset, entry.qp_factor
-            is_b = entry.slice_type == "B"
         else:
-            entry = None
+            entry_idx, entry = 0, None
             qp_off = (3, 2, 3, 1)[(gop_poc - 1) % 4]
             qf = (0.4624, 0.4624, 0.4624, 0.578)[(gop_poc - 1) % 4]
-        slice_qp = int(np.clip(cfg.qp + qp_off, 0, 51))
-        # future DPB = (cleared at a current-frame IDR) + current frame
-        future = set() if cur_is_intra else set(self.dpb)
-        future.add(cur_cvs)
+        slice_qp = int(np.clip(cfg.qp + qp_off if rc_qp is None else rc_qp,
+                               0, 51))
         if entry is not None and entry.reference_pics:
-            avail = [d for d in entry.reference_pics
-                     if (gop_poc + d) in future]
-            if not avail:
-                avail = [-1]
-            avail.sort(reverse=True)
-            nact = max(1, min(entry.num_ref_pics_active or 1, len(avail)))
-            ref_pocs = [gop_poc + d for d in avail[:nact]]
+            # decoder L0 order: POC < cur by descending POC
+            deltas = sorted((d for d in entry.reference_pics
+                             if (gop_poc + d) in dpb_pocs),
+                            reverse=True) or [-1]
+            nact = max(1, min(entry.num_ref_pics_active or 1, len(deltas)))
         else:
-            ref_pocs = [gop_poc - 1]
-        pic_lam = hm_pic_lambda(slice_qp, self.gop_size or 1, gop_poc,
-                                qf, False)
-        return {"display_poc": npoc, "cvs_poc": gop_poc,
-                "cur_cvs": cur_cvs, "is_b": is_b, "qf": qf,
-                "slice_qp": slice_qp, "lam": pic_lam,
-                "ref_pocs": ref_pocs}
+            deltas, nact = [-1], 1
+        return {"cvs_poc": gop_poc, "entry": entry, "entry_idx": entry_idx,
+                "is_b": entry is not None and entry.slice_type == "B",
+                "slice_qp": slice_qp, "qf": qf,
+                "lam": hm_pic_lambda(slice_qp, self.gop_size or 1, gop_poc,
+                                     qf, False),
+                "deltas": deltas,
+                "ref_pocs": [gop_poc + d for d in deltas[:nact]]}
+
+    def _dispatch_search(self, orig_dev, refs, lam_fp: int, *, wp=None,
+                         refine: bool = False):
+        """Dispatch the integer motion search of the source luma
+        `orig_dev` against the padded device reference planes `refs`
+        through me_ssd.me_grids_multi2_async (looked up at call time):
+        the CU grid, ctu >> 1 = 32 (cfg.validate admits 64x64 CTUs only),
+        and the 16 grid. Returns its zero-arg collector of [(gx, gy, gx2,
+        gy2[, refine tables])], one entry a reference. Under a mesh every
+        grid's block rows split over it."""
+        from ..ops import me_ssd
+        from .native_frame import PAD
+        return me_ssd.me_grids_multi2_async(
+            orig_dev, refs, self.sps.ctu_size >> 1, 16,
+            self.cfg.search_range, lam_fp, pad=PAD,
+            depth=self.sps.bit_depth_luma, mesh=self.mesh, wp=wp,
+            refine=refine)
+
+    def _picture_search(self, display_poc: int, src_y: np.ndarray,
+                        ref_l0, ref_l1, lam: float, wp: dict):
+        """The integer motion search of an inter picture as a zero-arg
+        resolver of its grids (l0, l1): per reference of each list,
+        (gx, gy, gx2, gy2[, refine tables]). ref_l0/ref_l1: (cvs_poc,
+        planes) in list order; wp: {cvs_poc: (w, o, denom) or None}, the
+        luma weights of each reference.
+
+        The resolver waits on the lookahead's search when that covers
+        every reference with these parameters and no reference is
+        weighted (the lookahead searches unweighted). Otherwise it
+        uploads the source and searches the unique references of L0 and
+        L1 once each (TEncSearch.cpp:3027 searches each refIdx of each
+        list), weighted, and with the refine tables unless under a mesh.
+        Under me_provider the provider's grid replaces list-0 reference
+        0's CU grid, no tables are computed, and every weighted
+        reference is weighted before the search whatever grids the
+        picture holds."""
+        from ..ops import me_ssd
+        lam_fp = int(65536.0 * math.sqrt(lam))
+        devs = {p: self._dev_ref(p, pl) for p, pl in ref_l0 + ref_l1}
+        pocs = list(devs)
+        pre = self._me_pending_take(display_poc, pocs, lam_fp)
+
+        def lists(out):
+            return [out[p] for p, _ in ref_l0], [out[p] for p, _ in ref_l1]
+
+        if pre is not None and not any(wp.values()):
+            def resolve():
+                timers.add("me_searched")
+                timers.add("me_lookahead_taken")
+                return lists(pre())
+            return resolve
+        provider = self.me_provider
+        refine = self.mesh is None and provider is None and _rf()
+
+        def resolve():
+            timers.add("me_searched")
+            depth = self.sps.bit_depth_luma
+            orig_dev = runtime.upload(
+                np.asarray(src_y, me_ssd.me_dtype(depth)), self.device)
+            refs, wps = [devs[p] for p in pocs], [wp.get(p) for p in pocs]
+            if provider is not None and any(wps):
+                refs = [me_ssd.wp_apply(d, t, depth) if t else d
+                        for d, t in zip(refs, wps)]
+                wps = None
+            l0, l1 = lists(dict(zip(pocs, self._dispatch_search(
+                orig_dev, refs, lam_fp, wp=wps, refine=refine)())))
+            got = provider(display_poc) if provider is not None else None
+            if got is not None:
+                l0[0] = tuple(got) + tuple(l0[0][2:])
+            return l0, l1
+        return resolve
 
     def _prefetch_me(self, planes: List[np.ndarray]) -> None:
         """Dispatch the next frame's integer ME for every reference that
         is ALREADY final. The current frame's own recon (usually ref 0)
         dispatches later, as soon as its SAO completes inside
         _encode_au — by the time the next frame's CU engine needs the MV
-        grids the device has computed them under host work."""
-        import os as _osm
+        grids the device has computed them under host work. Low-delay
+        GOPs without rate control only (the next picture's plan is then
+        known)."""
         cfg = self.cfg
         if (cfg.intra_period == 1 or self.mesh is not None
                 or self.me_provider is not None
-                or _osm.environ.get("HEVC_TPU_ME_PREFETCH", "1") == "0"
-                or _osm.environ.get("HEVC_TPU_ME_MULTI", "1") == "0"
-                or _osm.environ.get("HEVC_TPU_NATIVE_RECON", "1") == "0"
-                or self.sps.chroma_format_idc != 1):
-            return
-        plan = self._next_frame_plan()
-        if plan is None:
+                or os.environ.get("HEVC_TPU_ME_PREFETCH", "1") == "0"
+                or self.sps.chroma_format_idc != 1
+                or self.reordered or self.rc is not None
+                or self._is_idr(self.poc + 1)):
             return
         from ..ops import me_ssd
-        from .native_frame import PAD
-        depth = self.sps.bit_depth_luma
-        size = self.sps.ctu_size >> 1
-        want16 = (_osm.environ.get("HEVC_TPU_CU16", "1") != "0"
-                  and size > 16)
-        if not want16:
-            return  # the sync single-grid path stays as-is
-        r = cfg.search_range
+        cur_idr = self._is_idr(self.poc)
+        cur_cvs = 0 if cur_idr else self.poc - self.last_idr_poc
+        # the DPB after the current picture: cleared at an IDR, plus it
+        future = (set() if cur_idr else set(self.dpb)) | {cur_cvs}
+        plan = self._low_delay_plan(
+            self.poc + 1, future, self.poc if cur_idr else self.last_idr_poc)
         lam_fp = int(65536.0 * math.sqrt(plan["lam"]))
         orig_dev = runtime.upload(
-            np.asarray(planes[0], me_ssd.me_dtype(depth)), self.device)
-        ready = [p for p in plan["ref_pocs"]
-                 if p != plan["cur_cvs"] and p in self.dpb]
-        parts = []
+            np.asarray(planes[0], me_ssd.me_dtype(self.sps.bit_depth_luma)),
+            self.device)
+        ready = [p for p in plan["ref_pocs"] if p != cur_cvs and p in self.dpb]
+        mp = {"lam_fp": lam_fp, "orig_dev": orig_dev,
+              "ref_pocs": plan["ref_pocs"], "parts": []}
         if ready:
-            devs = [self._dev_ref(p, self.dpb[p]) for p in ready]
-            if any(d is None for d in devs):
-                return
-            parts.append((ready, me_ssd.me_grids_multi2_async(
-                orig_dev, devs, size, 16, r, lam_fp, pad=PAD,
-                depth=depth, refine=_rf())))
-        self._me_pending[plan["display_poc"]] = {
-            "params": (size, r, lam_fp, depth),
-            "orig_dev": orig_dev, "ref_pocs": plan["ref_pocs"],
-            "parts": parts}
+            self._dispatch_part(mp, ready,
+                                [self._dev_ref(p, self.dpb[p]) for p in ready])
+        self._me_pending[self.poc + 1] = mp
+
+    def _dispatch_part(self, mp: dict, pocs, refs) -> None:
+        """Dispatch the search of a pending lookahead entry `mp` against
+        the device references `refs` of POCs `pocs` (unweighted; with the
+        refine tables under HEVC_TPU_ME_REFINE=1)."""
+        mp["parts"].append((pocs, self._dispatch_search(
+            mp["orig_dev"], refs, mp["lam_fp"], refine=_rf())))
+
+    @staticmethod
+    def _collect(parts) -> dict:
+        """{poc: grids} of a lookahead entry's dispatched parts."""
+        out = {}
+        for pocs, collect in parts:
+            out.update(zip(pocs, collect()))
+        return out
 
     def _me_pending_early_dispatch(self, cvs_poc: int,
                                    recon_y: np.ndarray) -> None:
@@ -743,9 +800,8 @@ class EncoderTop:
         overlap/quality rationale. HEVC_TPU_ME_PREFILTER_REF=0 falls
         back to the post-SAO dispatch (filtered reference, less
         overlap)."""
-        if os.environ.get("HEVC_TPU_ME_PREFILTER_REF", "1") == "0":
-            return
-        if not self._me_pending:
+        if (os.environ.get("HEVC_TPU_ME_PREFILTER_REF", "1") == "0"
+                or not self._me_pending):
             return
         from ..ops import me_ssd
         from .native_frame import PAD
@@ -761,24 +817,16 @@ class EncoderTop:
                 dt = me_ssd.me_dtype(self.sps.bit_depth_luma)
                 ref_dev = me_ssd.pad_ref_device(runtime.upload(
                     np.asarray(recon_y, dt), self.device), PAD)
-            size, r, lam_fp, depth = mp["params"]
-            mp["parts"].append(([cvs_poc], me_ssd.me_grids_multi2_async(
-                mp["orig_dev"], [ref_dev], size, 16, r, lam_fp, pad=PAD,
-                depth=depth, refine=_rf())))
+            self._dispatch_part(mp, [cvs_poc], [ref_dev])
             # every reference is now dispatched: resolve on a worker
             # thread so the wait for the device rides under this frame's
             # loop-filter/entropy tail (the CUDA event wait releases the
             # GIL)
             import threading
-            parts = mp["parts"]
             box = {}
 
-            def _bg_resolve(parts=parts, box=box):
-                out = {}
-                for pocs, collect in parts:
-                    for poc, grids in zip(pocs, collect()):
-                        out[poc] = grids
-                box["out"] = out
+            def _bg_resolve(parts=mp["parts"], box=box):
+                box["out"] = self._collect(parts)
             th = threading.Thread(target=_bg_resolve, daemon=True)
             th.start()
             mp["resolved"] = (th, box)
@@ -787,37 +835,28 @@ class EncoderTop:
         """Called as soon as the current frame's recon is final (post-SAO)
         and uploaded: dispatch any pending next-frame search that was
         waiting for this reference."""
-        from ..ops import me_ssd
-        from .native_frame import PAD
         for mp in self._me_pending.values():
             if cvs_poc not in mp["ref_pocs"]:
                 continue
             covered = {p for pocs, _ in mp["parts"] for p in pocs}
             missing = [p for p in mp["ref_pocs"]
                        if p not in covered and p in self._dev_refs]
-            if not missing:
-                continue
-            size, r, lam_fp, depth = mp["params"]
-            mp["parts"].append((missing, me_ssd.me_grids_multi2_async(
-                mp["orig_dev"], [self._dev_refs[p] for p in missing],
-                size, 16, r, lam_fp, pad=PAD, depth=depth, refine=_rf())))
+            if missing:
+                self._dispatch_part(mp, missing,
+                                    [self._dev_refs[p] for p in missing])
 
-    def _me_pending_take(self, display_poc, ref_l0, ref_l1, lam_fp,
-                         size, r, depth):
-        """Return a zero-arg resolver of {poc: (gx, gy, gx2, gy2)} when a
-        prefetched search covers this frame's exact reference lists and
-        search parameters; None otherwise. Consumes the pending entry."""
+    def _me_pending_take(self, display_poc: int, pocs, lam_fp: int):
+        """A zero-arg resolver of {poc: grids} when a lookahead search of
+        display picture `display_poc` covers the references `pocs` at
+        λ `lam_fp`; None otherwise. Consumes the pending entry, and drops
+        those of pictures before it."""
         for stale in [p for p in self._me_pending if p < display_poc]:
             del self._me_pending[stale]
         mp = self._me_pending.pop(display_poc, None)
-        if mp is None or mp["params"] != (size, r, lam_fp, depth):
+        if mp is None or mp["lam_fp"] != lam_fp:
             return None
-        need = {p for p, _ in ref_l0} | \
-               ({p for p, _ in ref_l1} if ref_l1 else set())
-        covered = {p for pocs, _ in mp["parts"] for p in pocs}
-        if not need <= covered:
+        if not set(pocs) <= {p for ps, _ in mp["parts"] for p in ps}:
             return None
-        parts = mp["parts"]
         if "resolved" in mp:
             th, box = mp["resolved"]
 
@@ -825,14 +864,7 @@ class EncoderTop:
                 th.join()
                 return box["out"]
             return resolve
-
-        def resolve():
-            out = {}
-            for pocs, collect in parts:
-                for poc, grids in zip(pocs, collect()):
-                    out[poc] = grids
-            return out
-        return resolve
+        return lambda: self._collect(mp["parts"])
 
     def _du_timing(self, leading_nals, slice_nals):
         """Per-decoding-unit NAL counts and CPB removal delays (reference
@@ -1061,9 +1093,7 @@ class EncoderTop:
     # ------------------------------------------------------------------
     def _encode_streaming(self, planes) -> bytes:
         cfg = self.cfg
-        is_intra = (self.poc == 0 or
-                    (cfg.intra_period > 0 and
-                     self.poc % max(cfg.intra_period, 1) == 0))
+        is_intra = self._is_idr(self.poc)
         if self.rc:
             comp = 0.0
             if is_intra:
@@ -1079,50 +1109,28 @@ class EncoderTop:
                                  qf=0.57, rps=None, ref_l0=None, ref_l1=None,
                                  idr=True)
         else:
-            gop_poc = self.poc - self.last_idr_poc
-            is_b = False
-            entry = None
-            entry_idx = 0
-            if cfg.gop_entries:
-                entry_idx = (gop_poc - 1) % len(cfg.gop_entries)
-                entry = cfg.gop_entries[entry_idx]
-                qp_off, qf = entry.qp_offset, entry.qp_factor
-                is_b = entry.slice_type == "B"
-            else:
-                qp_off = (3, 2, 3, 1)[(gop_poc - 1) % 4]
-                qf = (0.4624, 0.4624, 0.4624, 0.578)[(gop_poc - 1) % 4]
-            slice_qp = int(np.clip(base_qp + (0 if self.rc else qp_off),
-                                   0, 51))
+            plan = self._low_delay_plan(self.poc, self.dpb, self.last_idr_poc,
+                                        base_qp if self.rc else None)
+            entry, deltas = plan["entry"], plan["deltas"]
             # multi-reference list from the GOP entry's RPS (reference
             # TEncSearch per-refIdx search over NumRefIdxActive refs)
             if entry is not None and entry.reference_pics:
-                want = list(entry.reference_pics)
-                avail = [d for d in want if (gop_poc + d) in self.dpb]
-                if not avail:
-                    avail = [-1]
-                # decoder L0 order: POC < cur by descending POC
-                avail.sort(reverse=True)
-                full = (avail == sorted(want, reverse=True)
+                full = (deltas == sorted(entry.reference_pics, reverse=True)
                         and len(self.sps.short_term_rps) ==
                         len(cfg.gop_entries))
-                rps = ShortTermRPS(delta_pocs=avail,
-                                   used_flags=[1] * len(avail))
-                nact = max(1, min(entry.num_ref_pics_active or 1,
-                                  len(avail)))
-                refs = [(gop_poc + d, self.dpb[gop_poc + d])
-                        for d in avail[:nact]]
+                rps_idx = plan["entry_idx"]
             else:
                 full = len(self.sps.short_term_rps) == 1
-                rps = ShortTermRPS(delta_pocs=[-1], used_flags=[1])
-                refs = [(gop_poc - 1, self.dpb_recon)]
-                entry_idx = 0
+                rps_idx = 0
+            refs = [(p, self.dpb[p]) for p in plan["ref_pocs"]]
             au = self._encode_au(
-                planes, display_poc=self.poc, cvs_poc=gop_poc,
-                stype=SliceType.B if is_b else SliceType.P,
-                slice_qp=slice_qp, qf=qf, rps=rps,
-                ref_l0=refs,
-                ref_l1=[refs[0]] if is_b else None,
-                idr=False, use_sps_rps=full, rps_sps_idx=entry_idx)
+                planes, display_poc=self.poc, cvs_poc=plan["cvs_poc"],
+                stype=SliceType.B if plan["is_b"] else SliceType.P,
+                slice_qp=plan["slice_qp"], qf=plan["qf"],
+                rps=ShortTermRPS(delta_pocs=deltas,
+                                 used_flags=[1] * len(deltas)),
+                ref_l0=refs, ref_l1=[refs[0]] if plan["is_b"] else None,
+                idr=False, use_sps_rps=full, rps_sps_idx=rps_idx)
         self.poc += 1
         return au
 
@@ -1236,9 +1244,7 @@ class EncoderTop:
         lossless = bool(getattr(cfg, "tq_bypass_force", 0))
         sao_on = 1 if (cfg.sao and not lossless) else 0
         cfmt = self.sps.chroma_format_idc
-        use_native = (not lossless
-                      and (cfmt == 1 or (cfmt == 3 and is_intra)) and
-                      os.environ.get("HEVC_TPU_NATIVE_RECON", "1") != "0")
+        use_native = not lossless and (cfmt == 1 or (cfmt == 3 and is_intra))
         n_l0 = 0 if is_intra else len(ref_l0)
         n_l1 = len(ref_l1) if is_b and ref_l1 else 0
         sh = SliceHeader(
@@ -1327,10 +1333,10 @@ class EncoderTop:
                 set_collocated(senc, self.dpb_motion[l0_poc], True)
             if use_native:
                 from .native_frame import NativeFrameEncoder
-                scr = self._take_intra_screen(display_poc)
-                fe = NativeFrameEncoder(self.sps, slice_qp, senc, sp,
-                                        intra_screen=scr, lam=pic_lam,
-                                        device=self.device)
+                fe = NativeFrameEncoder(
+                    self.sps, senc, sp, lam=pic_lam,
+                    intra_hints=self._intra_hints(display_poc, planes[0],
+                                                  pic_lam))
             else:
                 fe = IntraFrameEncoder(self.sps, slice_qp, lam=pic_lam)
                 fe.cqp_off = (self.pps.pps_cb_qp_offset,
@@ -1495,53 +1501,27 @@ class EncoderTop:
                 set_collocated(senc, self.dpb_motion[col_poc], True)
             if use_native:
                 from .native_frame import NativeFrameEncoder
-                # luma WP triples per list-0/1 reference from the slice
-                # header's analysed weight sets: the integer search runs
-                # on the weighted reference (weighted distortion,
-                # reference TComRdCostWeightPrediction)
-                denom = sh.wp_log2_denom
-
-                def _wp_triples(sets, n):
-                    out = [None] * n
-                    for i, t in enumerate(sets or ()):
-                        if i < n and t is not None and t[0] is not None:
-                            out[i] = (t[0][0], t[0][1], denom)
-                    return out if any(out) else None
-                wp0 = _wp_triples(sh.wp_l0, len(ref_l0))
-                wp1 = (_wp_triples(sh.wp_l1, len(ref_l1))
-                       if is_b else None)
-                if os.environ.get("HEVC_TPU_ME_WP", "1") == "0":
-                    wp0 = wp1 = None  # unweighted search (A/B testing)
-                me_pre = self._me_pending_take(
-                    display_poc, ref_l0, ref_l1 if is_b else None,
-                    int(65536.0 * math.sqrt(pic_lam)),
-                    self.sps.ctu_size >> 1, cfg.search_range,
-                    self.sps.bit_depth_luma)
-                if me_pre is not None and (wp0 or wp1):
-                    # the prefetched search ran unweighted; a faded
-                    # frame re-searches with weights applied
-                    me_pre = None
+                # each reference's luma WP triple from the slice header's
+                # analysed weight sets: the integer search runs on the
+                # weighted reference (weighted distortion, reference
+                # TComRdCostWeightPrediction). A picture in both lists
+                # keeps its list-0 triple (the analysis gives it the same)
+                l1 = ref_l1 if is_b else []
+                wp = {}
+                for refs, sets in ((ref_l0, sh.wp_l0), (l1, sh.wp_l1)):
+                    for i, (p, _) in enumerate(refs):
+                        t = sets[i] if i < len(sets) else None
+                        luma = t[0] if t else None
+                        wp.setdefault(p, None if luma is None
+                                      else (*luma, sh.wp_log2_denom))
                 fe = NativeFrameEncoder(
-                    self.sps, slice_qp, senc, sp, qp_factor=qf, is_b=is_b,
-                    lam=pic_lam,
+                    self.sps, senc, sp, is_b=is_b, lam=pic_lam,
                     ref_planes=[self._padded_ref(p, pl)
                                 for p, pl in ref_l0],
                     ref1_planes=[self._padded_ref(p, pl)
-                                 for p, pl in ref_l1] if is_b else None,
-                    refs_padded=True,
-                    search_range=cfg.search_range,
-                    me_provider=(
-                        (lambda size, r, lam:
-                         self.me_provider(display_poc, size, r, lam))
-                        if self.me_provider else None),
-                    me_prefetch=me_pre,
-                    ref_pocs=[p for p, _ in ref_l0],
-                    ref1_pocs=[p for p, _ in ref_l1] if is_b else None,
-                    ref_dev=[self._dev_ref(p, pl) for p, pl in ref_l0],
-                    ref1_dev=[self._dev_ref(p, pl) for p, pl in ref_l1]
-                    if is_b else None,
-                    mesh=self.mesh, mesh_axis=self.mesh_axis,
-                    wp0=wp0, wp1=wp1, device=self.device)
+                                 for p, pl in l1] if is_b else None,
+                    grids=self._picture_search(display_poc, planes[0],
+                                               ref_l0, l1, pic_lam, wp))
             else:
                 # pure-Python reference path: single reference per list
                 fe = PFrameEncoder(self.sps, slice_qp, l0_planes,
@@ -1665,7 +1645,6 @@ class EncoderTop:
         # in-loop deblocking
         if (not self.pps.pps_deblocking_filter_disabled_flag
                 and not lossless):
-            from ..ops import deblock
             qmap = None
             if self.pps.cu_qp_delta_enabled_flag and ctu_qps is not None:
                 from ..entropy.cabac import tile_scan_order
@@ -1704,20 +1683,11 @@ class EncoderTop:
                                               self.sps.ctu_size, cfgw,
                                               cfgh)
             with timers.section("deblock"):
-                if os.environ.get("HEVC_TPU_NATIVE_DEBLOCK", "1") != "0":
-                    from ..entropy.cabac import deblock_frame_native
-                    recon = deblock_frame_native(
-                        recon, decisions, self.sps, slice_qp, ref_pocs,
-                        qp_map=qmap,
-                        cb_qp_offset=self.pps.pps_cb_qp_offset,
-                        cr_qp_offset=self.pps.pps_cr_qp_offset)
-                else:
-                    dmaps = deblock.build_maps(decisions, self.sps,
-                                               ref_pocs)
-                    deblock.deblock_frame(
-                        recon, dmaps, slice_qp, self.sps, qp_map=qmap,
-                        cb_qp_offset=self.pps.pps_cb_qp_offset,
-                        cr_qp_offset=self.pps.pps_cr_qp_offset)
+                from ..entropy.cabac import deblock_frame_native
+                recon = deblock_frame_native(
+                    recon, decisions, self.sps, slice_qp, ref_pocs,
+                    qp_map=qmap, cb_qp_offset=self.pps.pps_cb_qp_offset,
+                    cr_qp_offset=self.pps.pps_cr_qp_offset)
 
         # SAO: estimate on deblocked, attach params, apply after coding
         if sao_on:
@@ -1880,15 +1850,18 @@ class EncoderTop:
                 bpos, addr = end_b, addr + cnt
         data = b""
         if slice_rbsps is None and cfg.slice_segment_mode in (1, 2, 3):
-            # configured segmentation needs the native entropy path;
-            # cfg.validate() rejects the static conflicts (lossless), so
-            # reaching here means a debug override (HEVC_TPU_NATIVE_RECON=0)
-            # — say so instead of silently emitting one slice
+            # configured segmentation needs the native entropy path, and
+            # a picture coded by the Python encoders has none; cfg.validate()
+            # rejects the configurations that lead there (lossless, formats
+            # other than 4:2:0), so only a cfg changed after EncoderTop
+            # validated it reaches here — say so instead of silently
+            # emitting one slice
             import warnings
             warnings.warn(
                 f"SliceSegmentMode {cfg.slice_segment_mode} configured but "
-                "the native recon path is disabled; emitting a single "
-                "slice segment", RuntimeWarning)
+                "this picture takes the Python encoder, which has no "
+                "segmentation; emitting a single slice segment",
+                RuntimeWarning)
         if slice_rbsps is None:
             with timers.section("entropy"):
                 if isinstance(decisions, FrameDecisions):

@@ -930,8 +930,9 @@ def deblock_frame_native(recon, decisions, sps, qp, ref_pocs=((), ()),
                          beta_off=0, tc_off=0, qp_map=None,
                          cb_qp_offset=0, cr_qp_offset=0):
     """C++ deblocking (deblock.cpp hevc_deblock_frame); exact twin of
-    ops/deblock.py build_maps + deblock_frame. Returns the filtered
-    planes (in place when the inputs are already contiguous pel arrays).
+    hevc_tpu/ops/deblock.py build_maps + deblock_frame. Returns the
+    filtered planes (in place when the inputs are already contiguous pel
+    arrays).
     `decisions` is a FrameDecisions or a list of per-CTU map views."""
     bd = sps.bit_depth_luma
     lib = get_lib(bd > 14)

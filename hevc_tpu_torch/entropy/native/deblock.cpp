@@ -214,7 +214,7 @@ void build_maps(Maps& m, int w, int h, int ctu, int ctus_w, int nctu,
 }
 
 // BS per 4x4 block edge (spec 8.7.2.4); P = neighbour block, Q = this
-// block. Exact twin of ops/deblock.py _boundary_strength.
+// block. Exact twin of hevc_tpu/ops/deblock.py _boundary_strength.
 void boundary_strength(Maps& m, bool vertical) {
   std::vector<int32_t>& bs = vertical ? m.bs_v : m.bs_h;
   const std::vector<uint8_t>& edge = vertical ? m.edge_v : m.edge_h;

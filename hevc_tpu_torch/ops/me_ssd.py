@@ -966,8 +966,6 @@ def me_grid_ssd_np(orig_y, ref_padded_y, size: int, r: int, lam_fp: int, *,
     c_g = flat2[np.arange(n), idx_g]
     if os.environ.get("HEVC_TPU_ME_LOCAL_ONLY"):
         idx2 = idx_loc
-    elif os.environ.get("HEVC_TPU_ME_GLOBAL"):
-        idx2 = idx_g
     else:
         idx2 = np.where(c_g + (c_loc >> 3) < c_loc, idx_g, idx_loc)
     gy = (idx2 // nyx - r).astype(np.int32).reshape(ny, nx)

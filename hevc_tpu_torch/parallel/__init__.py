@@ -295,7 +295,7 @@ def encode_clip(cfg, frames: List[List[np.ndarray]],
         for i, t in enumerate(inter):
             grids[t] = (gx[i], gy[i])
 
-    enc.me_provider = lambda poc, *_a: grids.get(poc)
+    enc.me_provider = grids.get
     out = b"".join(enc.encode_frame(f) for f in frames)
     out += enc.flush()
     return out, enc.stats

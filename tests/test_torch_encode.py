@@ -63,12 +63,12 @@ def test_ldp_four_refs_stream_identical(monkeypatch):
     grids, and the streams are identical."""
     from hevc_tpu_torch.ops import me_ssd
     nrefs = []
-    real = me_ssd.me_grids_multi2
+    real = me_ssd.me_grids_multi2_async
 
     def spy(orig, refs, *a, **k):
         nrefs.append(len(refs))
         return real(orig, refs, *a, **k)
-    monkeypatch.setattr(me_ssd, "me_grids_multi2", spy)
+    monkeypatch.setattr(me_ssd, "me_grids_multi2_async", spy)
     frames = moving_frames(12, 128, 80, seed=5)
     cfg = _ref_cfg(128, 80, 12)
     ref = _jax_encode(cfg, frames)
@@ -133,9 +133,10 @@ def test_cli_lookahead_matches_reference_device_path(tmp_path, monkeypatch):
     """Both CLIs on the same clip, with the one-frame ME lookahead running:
     the port's (as on a card) against hevc_tpu's device orchestration on
     JAX-CPU (HEVC_TPU_ME_PREFETCH_CPU=1). Every P frame takes its grids
-    from the lookahead."""
+    from the lookahead: the encoder's counters say so."""
     from hevc_tpu.cli.encode import main as jax_main
     from hevc_tpu_torch.cli.encode import main as port_main
+    from hevc_tpu_torch.utils.timing import timers
     w, h, n = 128, 80, 6
     clip = tmp_path / "clip.yuv"
     with open(clip, "wb") as fh:
@@ -144,23 +145,20 @@ def test_cli_lookahead_matches_reference_device_path(tmp_path, monkeypatch):
                 fh.write(p.tobytes())
     args = ["-c", LDP_CFG, "-i", str(clip), "-wdt", str(w), "-hgt", str(h),
             "-f", str(n)]
-    hits = []
-    real_take = EncoderTop._me_pending_take
-
-    def take(self, *a, **k):
-        r = real_take(self, *a, **k)
-        hits.append(r is not None)
-        return r
-    monkeypatch.setattr(EncoderTop, "_me_pending_take", take)
+    timers.reset()
+    monkeypatch.setattr(timers, "enabled", True)
     assert port_main(args + ["-b", str(tmp_path / "port.bin")],
                      device="cpu") == 0
+    count = dict(timers.count)
+    monkeypatch.setattr(timers, "enabled", False)
+    timers.reset()
     monkeypatch.setenv("HEVC_TPU_ME_PREFETCH_CPU", "1")
     with no_jax_cache_writes():
         assert jax_main(args + ["-b", str(tmp_path / "ref.bin")]) == 0
     port = (tmp_path / "port.bin").read_bytes()
     ref = (tmp_path / "ref.bin").read_bytes()
     assert hashlib.md5(port).hexdigest() == hashlib.md5(ref).hexdigest()
-    assert hits == [True] * (n - 1)
+    assert count["me_lookahead_taken"] == count["me_searched"] == n - 1
 
 
 def test_cuda_request_without_card_raises():

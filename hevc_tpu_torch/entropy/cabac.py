@@ -844,14 +844,15 @@ class _MapsView:
 # frame calls, CTU rows that changed hands on the wavefront, intra luma
 # modes taken through full RD (predicted, transformed, quantised,
 # reconstructed and rated: the exact-RD shortlist of a CU, each candidate
-# of an NxN partition's 4x4 PUs), and core transforms, forward and inverse
+# of an NxN partition's 4x4 PUs), core transforms, forward and inverse, and
+# exact RDOQs of TBs of any size
 ENGINE_TRACE_KEYS = ("engine_busy_s", "engine_wait_s", "engine_thread_wall_s",
                      "engine_intra_s", "engine_merge_s",
                      "engine_inter_search_s", "engine_residual_s",
                      "engine_other_s", "engine_traced_frames",
                      "engine_row_switches", "engine_intra_rd_modes",
-                     "engine_xforms")
-ENGINE_TRACE_COUNTS = 4
+                     "engine_xforms", "engine_rdoqs")
+ENGINE_TRACE_COUNTS = 5
 
 
 def engine_frame_stats(pel32: bool = False) -> dict:

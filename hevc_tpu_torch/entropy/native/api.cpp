@@ -75,8 +75,8 @@ void hevc_engine_trace(int on) { hevctpu::trace::g_on.store(on != 0); }
 // Their process-wide totals, trace::kTotals of them in trace::Total order:
 // ns of busy, wait, threads x wall, intra, merge, inter search, residual,
 // other; then the number of traced frame calls, of CTU rows that changed
-// hands on the wavefront, of intra modes taken through full RD and of core
-// transforms.
+// hands on the wavefront, of intra modes taken through full RD, of core
+// transforms and of exact RDOQs.
 int hevc_engine_trace_stats(long long* out, int n) {
   if (n < hevctpu::trace::kTotals) return -1;
   hevctpu::trace::totals(out);
@@ -91,6 +91,20 @@ void hevc_dsp_xform(int dir, int n, int bd, int dst, const int32_t* in,
     hevctpu::dsp::fwd_xform(in, n, bd, dst != 0, out);
   else
     hevctpu::dsp::inv_xform(in, n, bd, dst != 0, out);
+}
+
+// Exact RDOQ of one TB alone, for tests: the rates of the context states
+// that ContextSet::init(slice_type, init_qp) gives, then the engine's
+// rdoq_quant; smat may be null (flat). No encode path calls it.
+int hevc_rdoq_quant(int slice_type, int init_qp, int log2, int c_idx,
+                    int scan_idx, int qp, int bd, double lambda,
+                    const int32_t* coef, const int32_t* smat, int32_t* lev) {
+  ContextSet cs;
+  cs.init(slice_type, init_qp);
+  RdoqRates rt;
+  rt.build(cs);
+  return rdoq_quant(rt, coef, lev, log2, c_idx, scan_idx, qp, bd, lambda,
+                    smat);
 }
 
 // Always-on frame-drive telemetry: wall vs process-CPU ns accumulated per

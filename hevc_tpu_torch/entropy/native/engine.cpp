@@ -41,6 +41,7 @@ void Frame::add(const Sums& s) {
   sum_.row_switches += s.row_switches;
   sum_.intra_rd_modes += s.intra_rd_modes;
   sum_.xforms += s.xforms;
+  sum_.rdoqs += s.rdoqs;
 }
 
 Frame::~Frame() {
@@ -62,6 +63,7 @@ Frame::~Frame() {
   g_totals[kRowSwitches] += sum_.row_switches;
   g_totals[kIntraRdModes] += sum_.intra_rd_modes;
   g_totals[kXforms] += sum_.xforms;
+  g_totals[kRdoqs] += sum_.rdoqs;
 }
 }  // namespace trace
 }  // namespace hevctpu
@@ -419,6 +421,7 @@ CtuEngine::CtuEngine(const SliceParams& sp, const EngineParams& ep,
     : sp_(sp), ep_(ep), senc_(senc), me_nx_(me_nx), me_ny_(me_ny),
       me16_nx_(me16_nx), me16_ny_(me16_ny) {
   est_ctx_ = senc_->contexts();  // slice-init states for RD bit estimates
+  rdoq_rates_.build(est_ctx_);
   const char* rq = getenv("HEVC_TPU_RDOQ");
   rdoq_exact_ = !(rq && strcmp(rq, "lite") == 0);
   if (rdoq_exact_) est_enc_.reset(new SliceEncoder(sp));
@@ -506,7 +509,7 @@ int CtuEngine::rdoq_run(int32_t* lev, const int32_t* coef, int n, int qp,
                         const int32_t* smat) {
   if (sp_.rdoq_off) return nz;  // cfg RDOQ=0: keep plain quant levels
   if (rdoq_exact_)
-    return rdoq_quant(est_ctx_, coef, lev, ilog2(n), c_idx, scan_idx, qp,
+    return rdoq_quant(rdoq_rates_, coef, lev, ilog2(n), c_idx, scan_idx, qp,
                       bd_, lam, smat);
   if (nz) return rdoq_adjust(lev, coef, n, qp, bd_, lam, smat);
   return 0;
@@ -522,7 +525,7 @@ int CtuEngine::quant_levels(const int32_t* coef, int n, int qp, bool intra,
                             int32_t* lev, const int32_t* smat, int c_idx,
                             int scan_idx, double lam, bool rdoq_enabled) {
   if (rdoq_enabled && !sp_.rdoq_off && rdoq_exact_)
-    return rdoq_quant(est_ctx_, coef, lev, ilog2(n), c_idx, scan_idx, qp,
+    return rdoq_quant(rdoq_rates_, coef, lev, ilog2(n), c_idx, scan_idx, qp,
                       bd_, lam, smat);
   int nz = dsp::quant(coef, n, qp, bd_, intra, lev, smat);
   if (rdoq_enabled && !sp_.rdoq_off && nz)
@@ -1141,8 +1144,10 @@ void CtuEngine::set_cu_qp(int x0, int y0) {
 
 void CtuEngine::encode_ctu(int cx, int cy, const MutCtuData& d) {
   trace::Ctu _trace;  // busy time, split by the stages opened below
-  if (est_enc_ && sequential_)
+  if (est_enc_ && sequential_) {
     est_ctx_ = est_enc_->contexts();  // true states at this CTU
+    rdoq_rates_.build(est_ctx_);
+  }
   // per-CTU quantization state (always set: thread-local, and a worker
   // thread may be seeing this engine for the first time)
   if (sp_.cu_dqp && sp_.ctu_qps) {

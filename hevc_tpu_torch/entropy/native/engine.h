@@ -33,9 +33,10 @@ namespace hevctpu {
 // the wall time of its encode_ctu calls (busy) into disjoint RD stages —
 // the innermost open Stage owns the time, what no Stage claims goes to
 // kOther — the time it waits for a CTU that is ready to code, the times a
-// CTU row changes hands, the intra modes it takes through full RD and the
-// core transforms it runs. The sums live in thread-local storage and reach
-// the frame's totals once, when the thread's Worker ends. Times are TSC ticks, scaled to nanoseconds per
+// CTU row changes hands, the intra modes it takes through full RD, the
+// core transforms it runs and its exact RDOQs. The sums live in
+// thread-local storage and reach the frame's totals once, when the
+// thread's Worker ends. Times are TSC ticks, scaled to nanoseconds per
 // frame against CLOCK_MONOTONIC (Frame). Off, a scope costs one branch.
 namespace trace {
 enum StageId { kIntra, kMerge, kInterSearch, kResidual, kOther, kStages };
@@ -45,6 +46,7 @@ struct Sums {
   long long row_switches;  // a count, not ticks
   long long intra_rd_modes;  // a count
   long long xforms;          // a count
+  long long rdoqs;           // a count
 };
 struct Thread {
   bool on = false;
@@ -55,9 +57,9 @@ struct Thread {
 extern std::atomic<bool> g_on;
 extern thread_local Thread tl;
 // process-wide totals (ns; then counts: traced frames, row switches, intra
-// modes through full RD, core transforms), in this order
+// modes through full RD, core transforms, RDOQ calls), in this order
 enum Total { kBusy, kWait, kThreadWall, kStage0, kFrames = kStage0 + kStages,
-             kRowSwitches, kIntraRdModes, kXforms, kTotals };
+             kRowSwitches, kIntraRdModes, kXforms, kRdoqs, kTotals };
 void totals(long long* out);
 
 inline long long ticks() {
@@ -158,6 +160,11 @@ inline void intra_rd_mode() {
 // dsp::inv_xform).
 inline void xform() {
   if (Thread* t = active()) ++t->s.xforms;
+}
+
+// One exact RDOQ of a TB of any size (rdoq_quant).
+inline void rdoq() {
+  if (Thread* t = active()) ++t->s.rdoqs;
 }
 
 // One engine frame call: the switch as it stood at the call's start, its
@@ -270,6 +277,7 @@ class CtuEngine {
                    int32_t* lev, const int32_t* smat, int c_idx,
                    int scan_idx, double lam, bool rdoq_enabled);
   ContextSet est_ctx_;   // context states for bit estimation
+  RdoqRates rdoq_rates_;  // est_ctx_'s RDOQ rates, rebuilt with it
   bool rdoq_exact_ = true;
   double tusplit_margin_ = 0.95;  // device-cost TU-split gate (0 = off)
   double cusplit_band_ = 0.05;    // intra CU-split gate margin (0 = off)

@@ -1,7 +1,10 @@
 // Implementation of the slice-data syntax codec. See syntax.h.
 #include "syntax.h"
 
+#include "engine.h"
+
 #include <algorithm>
+#include <bit>
 #include <cassert>
 #include <cstring>
 
@@ -1578,286 +1581,409 @@ void SliceEncoder::residual(int x0, int y0, int log2, int c_idx) {
 
 // ===========================================================================
 // Exact RDOQ (reference TComTrQuant::xRateDistOptQuant:2129, re-derived).
-// Rates are context-exact fractional bits read from kEntropyBits on the
-// supplied (slice-init) context states; the gt1/gt2 context counters, the
+// Rates are context-exact fractional bits (kEntropyBits) of the context
+// states an RdoqRates was built from; the gt1/gt2 context counters, the
 // Golomb-Rice parameter and the coefficient-group flags evolve along the
-// scan exactly as the residual writer above codes them.
+// scan exactly as the residual writer above codes them. One instance per
+// TB size. A rate is an integer in 1/32768 bit, so every sum of rates is
+// exact, and each double that enters a comparison is the re-derivation's:
+// D + lambda*R and D + sig + lambda*R per candidate, costs summed in scan
+// order.
 // ===========================================================================
+void RdoqRates::build(const ContextSet& cs) {
+  auto q = [](const ContextModel& c, int bin) {
+    return kEntropyBits[(((int)c.state << 1) | c.mps) ^ bin];
+  };
+  for (int b = 0; b < 2; ++b) {
+    for (int i = 0; i < 44; ++i) sig[i][b] = q(cs.sig[i], b);
+    for (int i = 0; i < 24; ++i) one[i][b] = q(cs.one[i], b);
+    for (int i = 0; i < 6; ++i) abs_[i][b] = q(cs.abs_[i], b);
+    for (int i = 0; i < 4; ++i) sig_cg[i][b] = q(cs.sig_cg[i], b);
+  }
+  // last_sig_coeff_{x,y}_prefix (context bins) and _suffix (bypass bins)
+  // of one coordinate (spec 9.3.4.2.3)
+  for (int ch = 0; ch < 2; ++ch)
+    for (int log2 = 2; log2 <= 5; ++log2) {
+      const int off = ch ? 0 : 3 * (log2 - 2) + ((log2 - 1) >> 2);
+      const int shift = ch ? log2 - 2 : (log2 + 1) >> 2;
+      const int cmax = (log2 << 1) - 1;
+      for (int xy = 0; xy < 2; ++xy) {
+        const ContextModel* c = (xy ? cs.last_y : cs.last_x) + (ch ? 15 : 0);
+        int32_t* out = xy ? last_y[ch][log2 - 2] : last_x[ch][log2 - 2];
+        for (int v = 0; v < (1 << log2); ++v) {
+          const int g = kGroupIdx[v];
+          int32_t b = 0;
+          for (int bb = 0; bb < g; ++bb) b += q(c[off + (bb >> shift)], 1);
+          if (g < cmax) b += q(c[off + (g >> shift)], 0);
+          if (g > 3) b += ((g >> 1) - 1) << 15;
+          out[v] = b;
+        }
+      }
+    }
+}
+
 namespace {
 
-inline double ctx_bits(const ContextModel& c, int bin) {
-  return kEntropyBits[(((int)c.state << 1) | c.mps) ^ bin] / 32768.0;
-}
+constexpr double kQ15 = 1.0 / 32768;  // 1/32768 bit -> bits, exactly
 
-// coeff_abs_level_remaining EP bits (mirror of the writer, spec 9.3.3.9)
-inline int eg_rice_bits(int rem, int rice) {
-  if (rem < (3 << rice)) return (rem >> rice) + 1 + rice;
-  int len = rice;
-  int val = rem - (3 << rice);
-  while (val >= (1 << len)) { val -= 1 << len; ++len; }
-  return (3 + len + 1 - rice) + len;
-}
-
-// rate in bits of coding |level| > 0 given the gt1/gt2 context models and
-// the in-group counters (k = number of earlier nonzero coeffs in the CG,
-// c2done = a gt2 flag was already coded in this CG)
-inline double level_rate(int level, const ContextModel& one_ctx,
-                         const ContextModel& abs_ctx, int k, bool c2done,
-                         int rice) {
-  double r = 1.0;  // sign (EP; SBH recovers most of it later)
-  if (k < 8) {
-    int base = c2done ? 2 : 3;
-    if (level >= base) {
-      r += ctx_bits(one_ctx, 1);
-      if (!c2done) r += ctx_bits(abs_ctx, 1);
-      r += eg_rice_bits(level - base, rice);
-    } else if (level == 1) {
-      r += ctx_bits(one_ctx, 0);
-    } else {  // level == 2, a gt2 flag still available
-      r += ctx_bits(one_ctx, 1) + ctx_bits(abs_ctx, 0);
-    }
-  } else {
-    r += eg_rice_bits(level - 1, rice);
+// The scan position of each raster position, per (log2, scan); the flat
+// scaling matrix; and the sig_coeff_flag ctxInc (spec 9.3.4.2.5) by
+// position in a coefficient group's scan: for TBs of 8x8 and up, by scan
+// and the coded-subblock pattern right + 2 * below, before the group's
+// offset (the DC position takes 0); for 4x4 TBs, kCtxMap4x4 read through
+// the scan
+struct RdoqScanTables {
+  std::vector<uint16_t> pos[4][3];
+  uint8_t pat[3][4][16];
+  uint8_t tb4[3][16];
+  int32_t flat[32 * 32];  // the flat scaling matrix
+  RdoqScanTables() {
+    std::fill(flat, flat + 32 * 32, 16);
+    for (int lg = 2; lg <= 5; ++lg)
+      for (int s = 0; s < 3; ++s) {
+        const auto& scan = g_scans.t[lg - 2][s];
+        pos[lg - 2][s].resize(scan.size());
+        for (size_t i = 0; i < scan.size(); ++i) pos[lg - 2][s][scan[i]] = i;
+      }
+    for (int s = 0; s < 3; ++s)
+      for (int kk = 0; kk < 16; ++kk) {
+        const int r = g_scans.t[0][s][kk], xp = r & 3, yp = r >> 2;
+        tb4[s][kk] = kCtxMap4x4[r];
+        pat[s][0][kk] = (xp + yp == 0) ? 2 : (xp + yp < 3) ? 1 : 0;
+        pat[s][1][kk] = (yp == 0) ? 2 : (yp == 1) ? 1 : 0;
+        pat[s][2][kk] = (xp == 0) ? 2 : (xp == 1) ? 1 : 0;
+        pat[s][3][kk] = 2;
+      }
   }
-  return r;
+};
+const RdoqScanTables g_rdoq_scan;
+
+// coeff_abs_level_remaining EP bits of rem >= 0 (mirror of the writer,
+// spec 9.3.3.11): a unary prefix of rem >> rice below 3, else the escape,
+// whose length len is that of the largest power of two in
+// rem - (3 << rice) + (1 << rice). Selected arithmetically.
+inline int eg_rice_bits(int rem, int rice) {
+  const int esc = std::max(rem - (3 << rice) + (1 << rice), 1);
+  const int len = 31 - __builtin_clz((unsigned)esc);
+  const int prefix = (rem >> rice) + 1 + rice, escape = 4 + 2 * len - rice;
+  return escape + ((prefix - escape) & ((rem - (3 << rice)) >> 31));
 }
 
-}  // namespace
+// rate in 1/32768 bit of coding |level| = l > 0 given the group's gt1
+// context at c1 (one) and its gt2 context (abs), and the in-group state:
+// k8 = fewer than 8 earlier nonzero coefficients in the CG, c2done = a
+// gt2 flag was already coded in this CG. The sign is one EP bit (SBH
+// recovers most of it later). l <= 0 gives a value no caller selects.
+inline int32_t level_rate(int l, int k8, int c2done, int rice,
+                          const int32_t* one, const int32_t* abs) {
+  const int g1 = l > 1;
+  const int rem = l - 1 - k8 * (2 - c2done);
+  const int32_t flags =
+      (one[g1] + (abs[l > 2] & -(g1 & (c2done ^ 1)))) & -k8;
+  return 32768 + flags + ((eg_rice_bits(rem, rice) << 15) & ~(rem >> 31));
+}
 
-int rdoq_quant(const ContextSet& cs, const int32_t* coef, int32_t* lev,
-               int log2, int c_idx, int scan_idx, int qp, int bd,
-               double lambda, const int32_t* smat) {
-  const int n = 1 << log2;
+// a < b for costs (finite, not negative): the sign of a - b, which is 0
+// exactly where a == b. Read from the bits, so that the compiler keeps the
+// choice it feeds as data rather than as a branch on the costs.
+inline int less(double a, double b) {
+  return (int)(std::bit_cast<uint64_t>(a - b) >> 63);
+}
+
+const int32_t kQScale[6] = {26214, 23302, 20560, 18396, 16384, 14564};
+const int32_t kIQScale[6] = {40, 45, 51, 57, 64, 72};
+
+template <int LOG2>
+int rdoq_tb(const RdoqRates& rt, const int32_t* coef, int32_t* lev,
+            int c_idx, int scan_idx, int qp, int bd, double lambda,
+            const int32_t* smat) {
+  constexpr int N = 1 << LOG2, NN = N * N, SBW = N >> 2;
   const bool luma = c_idx == 0;
-  const auto& scan = g_scans.t[log2 - 2][scan_idx];
+  const uint16_t* scan = g_scans.t[LOG2 - 2][scan_idx].data();
+  const uint16_t* pos = g_rdoq_scan.pos[LOG2 - 2][scan_idx].data();
   const int qpp = qp + 6 * (bd - 8);
-  const int tshift = 15 - bd - log2;
+  const int tshift = 15 - bd - LOG2;
   const int qbits = 14 + qpp / 6 + tshift;
-  static const int32_t kQScale[6] = {26214, 23302, 20560, 18396, 16384,
-                                     14564};
-  static const int32_t kIQScale[6] = {40, 45, 51, 57, 64, 72};
   const int64_t qscale = kQScale[qpp % 6];
-  const int bd_shift = bd + log2 - 5;
+  const int bd_shift = bd + LOG2 - 5;
   const int64_t iqs = (int64_t)kIQScale[qpp % 6] << (qpp / 6);
   const int64_t iround = 1ll << (bd_shift - 1);
   const double dscale = tshift >= 0 ? 1.0 / (double)(1ll << (2 * tshift))
                                     : (double)(1ll << (-2 * tshift));
+  const int32_t* scale = smat ? smat : g_rdoq_scan.flat;
   auto deq = [&](int64_t l, int r) {
-    int64_t mi = smat ? smat[r] : 16;
-    int64_t c = (l * mi * iqs + iround) >> bd_shift;
+    int64_t c = (l * scale[r] * iqs + iround) >> bd_shift;
     return std::min<int64_t>(32767, std::max<int64_t>(-32768, c));
   };
   auto dist_of = [&](int64_t e) { return (double)e * (double)e * dscale; };
+  // lambda times a rate in 1/32768 bit: the same double as lambda times
+  // the rate in bits, the scale being a power of two
+  const double lam15 = lambda * kQ15;
 
-  const int nn = n * n;
-  std::fill(lev, lev + nn, 0);
-  // per-position max candidate level (half-offset rounding, like the
-  // reference RDOQ's lLevelDouble path)
-  int maxlev[1024];
+  // per raster position: the max candidate level (half-offset rounding,
+  // like the reference RDOQ's lLevelDouble path), nonzero exactly where
+  // |coef| reaches the level-1 threshold, so the last candidate position
+  // is the largest scan position with one; and the cost as an uncoded zero
+  int maxlev[NN];
+  double cost_zero[NN];
   int last_scan = -1;
-  if (!smat) {
-    // uniform scale: the smallest |coef| that quantizes to a nonzero
-    // level is a constant, so the last candidate position falls out of
-    // a compare-only backward scan; the multiply-quant then runs only
-    // over the live prefix (most TBs are sparse)
-    int64_t cmin = ((1ll << (qbits - 1)) + qscale - 1) / qscale;
-    for (int i = nn - 1; i >= 0; --i)
-      if (std::abs((int64_t)coef[scan[i]]) >= cmin) { last_scan = i; break; }
-    if (last_scan < 0) return 0;
-    for (int i = 0; i <= last_scan; ++i) {
-      int64_t c = std::abs((int64_t)coef[scan[i]]);
-      maxlev[i] = (int)std::min<int64_t>(
-          32767, (c * qscale + (1ll << (qbits - 1))) >> qbits);
-    }
-  } else {
-    for (int i = 0; i < nn; ++i) {
-      int r = scan[i];
-      int64_t c = std::abs((int64_t)coef[r]);
-      int64_t sc = (qscale * 16) / std::max(1, (int)smat[r]);
-      int64_t l = (c * sc + (1ll << (qbits - 1))) >> qbits;
-      maxlev[i] = (int)std::min<int64_t>(32767, l);
-      if (maxlev[i]) last_scan = i;
-    }
-    if (last_scan < 0) return 0;
+  const int64_t half = 1ll << (qbits - 1);
+  for (int r = 0; r < NN; ++r) {
+    const int64_t c = std::abs((int64_t)coef[r]);
+    const int64_t sc =
+        smat ? (int32_t)(qscale * 16) / std::max(1, (int)smat[r]) : qscale;
+    maxlev[r] = (int)std::min<int64_t>(32767, (c * sc + half) >> qbits);
+    last_scan = std::max(last_scan, maxlev[r] ? (int)pos[r] : -1);
+    cost_zero[r] = dist_of(c);
   }
+  std::memset(lev, 0, sizeof(int32_t) * NN);
+  if (last_scan < 0) return 0;
 
   const int last_sb = last_scan >> 4;
-  const int sb_w = n >> 2;
-  uint8_t csbf[64] = {0};
-  auto sb_xy = [&](int sb) {
-    int r = scan[sb * 16];
-    return std::make_pair((r % n) >> 2, (r / n) >> 2);
-  };
-  // O(1) coded-subblock-flag lookup via the static (xs, ys) -> scan
-  // index inverse (the old linear scan re-derived every subblock's
-  // coordinates per query — quadratic in subblock count per TB)
-  const uint8_t* sbinv = g_sbinv.t[log2 - 2][scan_idx].data();
-  auto csbf_at = [&](int xs, int ys) -> int {
-    if (xs >= sb_w || ys >= sb_w || xs < 0 || ys < 0) return 0;
-    return csbf[sbinv[ys * sb_w + xs]];
-  };
+  uint8_t csbf[NN / 16] = {};
+  // by scan position: the cost as an uncoded zero, the cost of the level
+  // chosen there and its sig bin, and whether the level is nonzero; and
+  // the scan positions of the nonzero levels, from the end
+  double zero_s[NN], cost_coeff[NN], cost_sig[NN];
+  uint8_t nz_s[NN];
+  int nz_list[NN];
+  const int32_t(*sig_rt)[2] = rt.sig + (luma ? 0 : 28);
+  const int32_t(*one_rt)[2] = rt.one + (luma ? 0 : 16);
+  const int32_t(*abs_rt)[2] = rt.abs_ + (luma ? 0 : 4);
+  const int32_t(*cg_rt)[2] = rt.sig_cg + (luma ? 0 : 2);
 
-  double cost_coeff[1024], cost_sig[1024], cost_zero[1024];
-  double block_uncoded = 0;
-  for (int i = 0; i <= last_scan; ++i) {
-    int64_t c = std::abs((int64_t)coef[scan[i]]);
-    cost_zero[i] = dist_of(c);
-    cost_coeff[i] = cost_zero[i];
-    cost_sig[i] = 0;
-    block_uncoded += cost_zero[i];
-  }
-
-  const ContextModel* one_base = cs.one + (luma ? 0 : 16);
-  const ContextModel* abs_base = cs.abs_ + (luma ? 0 : 4);
-  const ContextModel* sig_base = cs.sig + (luma ? 0 : 28);
-  const ContextModel* cg_base = cs.sig_cg + (luma ? 0 : 2);
-
-  bool found_last = false;
+  int first = -1;  // scan position of the first nonzero level decided
+  int nnz = 0;     // nonzero levels, the length of nz_list
   int c1 = 1;
   double total = 0;  // cost of coded decisions (positions <= actual last)
+  // every uncoded cost is a square scaled by a power of two, so any sum
+  // of them is exact: the block's, in scan order, is its sum of squares
+  int64_t block_sq = 0;
 
   for (int sb = last_sb; sb >= 0; --sb) {
-    auto sp = sb_xy(sb);
-    int right = csbf_at(sp.first + 1, sp.second);
-    int below = csbf_at(sp.first, sp.second + 1);
+    const uint8_t* sctx = g_rdoq_scan.tb4[scan_idx];
+    int sig_off = 0, right = 0, below = 0;
+    if constexpr (LOG2 > 2) {
+      const uint8_t* sbinv = g_sbinv.t[LOG2 - 2][scan_idx].data();
+      const int r0 = scan[sb * 16];
+      const int xs = (r0 & (N - 1)) >> 2, ys = r0 >> (LOG2 + 2);
+      right = xs + 1 < SBW ? csbf[sbinv[ys * SBW + xs + 1]] : 0;
+      below = ys + 1 < SBW ? csbf[sbinv[(ys + 1) * SBW + xs]] : 0;
+      sctx = g_rdoq_scan.pat[scan_idx][right + 2 * below];
+      sig_off = luma ? (sb > 0 ? 3 : 0) +
+                           (LOG2 == 3 ? (scan_idx == 0 ? 9 : 15) : 21)
+                     : (LOG2 == 3 ? 9 : 12);
+    }
     int ctx_set = (sb > 0 && luma) ? 2 : 0;
     if (c1 == 0) ctx_set++;
     c1 = 1;
-    int k = 0;          // nonzero coefficients decided in this CG
-    bool c2done = false;
-    int rice = 0;
-    double cg_cost = 0, cg_zero = 0;
-    int cg_nz = 0;
-    int top = (sb == last_sb) ? (last_scan & 15) : 15;
+    const int32_t(*one)[2] = one_rt + 4 * ctx_set;
+    const int32_t* abs = abs_rt[ctx_set];
+    const int top = (sb == last_sb) ? (last_scan & 15) : 15;
+    const int g0 = sb * 16;
+
+    // ahead of the group's decisions: its lambda-scaled sig bins, each
+    // position's cost as a zero after the last coefficient, and the
+    // positions with a nonzero candidate level, in scan order from the end
+    double sig[2][16];  // [bin][kk]
+    int cand[16], ncand = 0;
+    int64_t cg_sq = 0;
     for (int kk = top; kk >= 0; --kk) {
-      int i = sb * 16 + kk;
-      int r = scan[i];
-      int xc = r % n, yc = r / n;
-      int64_t c = std::abs((int64_t)coef[r]);
-      int sctx = sig_ctx_inc(log2, scan_idx, xc, yc, right, below, luma);
-      double sig0 = lambda * ctx_bits(sig_base[sctx], 0);
-      double sig1 = lambda * ctx_bits(sig_base[sctx], 1);
-      int ml = maxlev[i];
-      if (!found_last) {
-        if (ml == 0) { total += cost_zero[i]; cg_zero += cost_zero[i];
-                       cg_cost += cost_zero[i]; continue; }
-        // candidate last coefficient: no sig bit
-        double best = cost_zero[i];
+      const int r = scan[g0 + kk];
+      const int ctx = (LOG2 > 2 && sb == 0 && kk == 0) ? 0 : sig_off + sctx[kk];
+      sig[0][kk] = lam15 * sig_rt[ctx][0];
+      sig[1][kk] = lam15 * sig_rt[ctx][1];
+      zero_s[g0 + kk] = cost_zero[r];
+      cost_coeff[g0 + kk] = cost_zero[r] + sig[0][kk];
+      cost_sig[g0 + kk] = sig[0][kk];
+      nz_s[g0 + kk] = 0;
+      cand[ncand] = kk;
+      ncand += maxlev[r] > 0;
+      cg_sq += (int64_t)coef[r] * coef[r];
+    }
+    block_sq += cg_sq;
+
+    int k = 0;  // nonzero coefficients decided in this CG
+    int c2done = 0;
+    int rice = 0;
+    int cg_nz = 0;
+    int c = 0;
+    if (first < 0) {
+      // up to the last coefficient: its candidates have no sig bin, and
+      // every position before it is an uncoded zero
+      int kk_last = -1;
+      for (; c < ncand; ++c) {
+        const int kk = cand[c], r = scan[g0 + kk], ml = maxlev[r];
+        const int64_t a = std::abs((int64_t)coef[r]);
+        double best = cost_zero[r];
         int best_l = 0;
-        for (int l = ml; l >= ml - 1 && l > 0; --l) {
-          double cost = dist_of(c - deq(l, r)) +
-                        lambda * level_rate(l, one_base[4 * ctx_set + c1],
-                                            abs_base[ctx_set], k, c2done,
-                                            rice);
-          if (cost < best) { best = cost; best_l = l; }
+        if (ml == 1) {
+          const double cost =
+              dist_of(a - deq(1, r)) + lam15 * (32768 + one[1][0]);
+          best_l = cost < best;
+          best = std::min(best, cost);
+        } else {
+          for (int l = ml; l >= ml - 1; --l) {
+            double cost = dist_of(a - deq(l, r)) +
+                          lam15 * level_rate(l, 1, 0, 0, one[1], abs);
+            if (cost < best) { best = cost; best_l = l; }
+          }
         }
-        if (best_l == 0) { total += cost_zero[i]; cg_zero += cost_zero[i];
-                           cg_cost += cost_zero[i]; continue; }
-        found_last = true;
+        if (best_l == 0) continue;
+        first = g0 + kk;
+        kk_last = kk;
         lev[r] = coef[r] < 0 ? -best_l : best_l;
-        cost_coeff[i] = best;
-        cost_sig[i] = 0;
+        cost_coeff[g0 + kk] = best;
+        cost_sig[g0 + kk] = 0;
+        nz_s[g0 + kk] = 1;
+        nz_list[nnz] = g0 + kk;
+        cg_nz = 1;
+        k = 1;
+        c1 = best_l > 1 ? 0 : 2;
+        rice = best_l > 3 ? 1 : 0;
+        c2done = best_l >= 2;
+        ++c;
+        break;
+      }
+      for (int kk = top; kk > kk_last; --kk) {
+        cost_coeff[g0 + kk] = zero_s[g0 + kk];
+        cost_sig[g0 + kk] = 0;
+      }
+    }
+    // the group's remaining decisions, in scan order: the choice among
+    // zero, ml and ml - 1 (a later one only where strictly cheaper) and the
+    // state it leaves, selected arithmetically. Most candidates have
+    // ml = 1: one level to weigh, whose rate reads c1 while fewer than 8
+    // were coded and the rice parameter after, and which leaves c2done and
+    // rice as they were.
+    for (; c < ncand; ++c) {
+      const int kk = cand[c], r = scan[g0 + kk], ml = maxlev[r];
+      const int64_t a = std::abs((int64_t)coef[r]);
+      const int k8 = k < 8;
+      const double c_zero = cost_coeff[g0 + kk];
+      int bl;
+      double best;
+      if (ml == 1) {
+        const int32_t rate =
+            32768 + (k8 ? one[c1][0] : (1 + rice) << 15);
+        const double c_1 = dist_of(a - deq(1, r)) + sig[1][kk] + lam15 * rate;
+        bl = less(c_1, c_zero);
+        best = std::min(c_zero, c_1);
       } else {
-        double best = cost_zero[i] + sig0;
-        int best_l = 0;
-        for (int l = ml; l >= ml - 1 && l > 0; --l) {
-          double cost = dist_of(c - deq(l, r)) + sig1 +
-                        lambda * level_rate(l, one_base[4 * ctx_set + c1],
-                                            abs_base[ctx_set], k, c2done,
-                                            rice);
-          if (cost < best) { best = cost; best_l = l; }
-        }
-        lev[r] = coef[r] < 0 ? -best_l : best_l;
-        cost_coeff[i] = best;
-        cost_sig[i] = best_l ? sig1 : sig0;
+        const double c_ml =
+            dist_of(a - deq(ml, r)) + sig[1][kk] +
+            lam15 * level_rate(ml, k8, c2done, rice, one[c1], abs);
+        const double c_ml1 =
+            dist_of(a - deq(ml - 1, r)) + sig[1][kk] +
+            lam15 * level_rate(ml - 1, k8, c2done, rice, one[c1], abs);
+        const int take_ml = less(c_ml, c_zero);
+        const double best_ml = std::min(c_zero, c_ml);
+        const int take_ml1 = less(c_ml1, best_ml);
+        best = std::min(best_ml, c_ml1);
+        bl = (ml & -(take_ml | take_ml1)) - take_ml1;
       }
-      int al = std::abs(lev[r]);
-      if (al) {
-        ++cg_nz;
-        // evolve gt1 context, gt2 availability and the rice parameter
-        // exactly like the residual writer above
-        if (k < 8) {
-          if (al > 1) c1 = 0;
-          else if (c1 < 3 && c1 > 0) c1++;
-        }
-        int base = (k < 8) ? (c2done ? 2 : 3) : 1;
-        if (al >= base && al > (3 << rice)) rice = std::min(rice + 1, 4);
-        if (al >= 2) c2done = true;
-        ++k;
-      }
-      cg_cost += cost_coeff[i];
-      cg_zero += cost_zero[i];
-      total += cost_coeff[i];
+      const int nz = bl != 0;
+      lev[r] = coef[r] < 0 ? -bl : bl;
+      cost_coeff[g0 + kk] = best;
+      cost_sig[g0 + kk] = sig[nz][kk];
+      nz_s[g0 + kk] = nz;
+      nz_list[nnz + cg_nz] = g0 + kk;
+      // evolve the gt1 context, gt2 availability and the rice parameter
+      // exactly like the residual writer above (a level above 3 << rice
+      // is at least its remainder's base)
+      const int c1_next = (c1 + ((unsigned)(c1 - 1) < 2u)) & -(int)(bl <= 1);
+      c1 += (c1_next - c1) & -(nz & k8);
+      rice += (bl > (3 << rice)) & (rice < 4);
+      c2done |= bl >= 2;
+      k += nz;
+      cg_nz += nz;
+    }
+    double cg_cost = 0;
+    for (int kk = top; kk >= 0; --kk) {
+      cg_cost += cost_coeff[g0 + kk];
+      total += cost_coeff[g0 + kk];
     }
     csbf[sb] = cg_nz > 0;
     // coefficient-group zeroing (signalled CGs only)
-    if (sb > 0 && sb < last_sb) {
-      double bits1 = lambda * ctx_bits(cg_base[(right || below) ? 1 : 0], 1);
-      double bits0 = lambda * ctx_bits(cg_base[(right || below) ? 1 : 0], 0);
+    if (LOG2 > 2 && sb > 0 && sb < last_sb) {
+      const double cg_zero = (double)cg_sq * dscale;  // exact, as above
+      const int cg_ctx = (right || below) ? 1 : 0;
+      double bits1 = lam15 * cg_rt[cg_ctx][1];
+      double bits0 = lam15 * cg_rt[cg_ctx][0];
       if (cg_nz == 0) {
         total += bits0;
       } else if (cg_zero + bits0 < cg_cost + bits1) {
-        for (int kk = 15; kk >= 0; --kk) {
-          int i = sb * 16 + kk;
+        for (int kz = 15; kz >= 0; --kz) {
+          const int i = g0 + kz;
           lev[scan[i]] = 0;
-          total += cost_zero[i] - cost_coeff[i];
-          cost_coeff[i] = cost_zero[i];
+          total += zero_s[i] - cost_coeff[i];
+          cost_coeff[i] = zero_s[i];
           cost_sig[i] = 0;
+          nz_s[i] = 0;
         }
         csbf[sb] = 0;
+        cg_nz = 0;
         total += bits0;
       } else {
         total += bits1;
       }
     }
+    nnz += cg_nz;
   }
+  if (first < 0) return 0;
 
   // last-position sweep: pick the nonzero position whose selection as the
   // last coefficient minimises total cost (positions above it become
-  // uncoded zeros); compare against coding nothing at all.
-  auto last_bits = [&](int pos) {
-    int lx = pos % n, ly = pos / n;
-    if (scan_idx == 2) std::swap(lx, ly);
-    const ContextModel* lastx = luma ? cs.last_x : cs.last_x + 15;
-    const ContextModel* lasty = luma ? cs.last_y : cs.last_y + 15;
-    int ctx_offset = luma ? 3 * (log2 - 2) + ((log2 - 1) >> 2) : 0;
-    int ctx_shift = luma ? (log2 + 1) >> 2 : log2 - 2;
-    int cmax = (log2 << 1) - 1;
-    int gx = kGroupIdx[lx], gy = kGroupIdx[ly];
-    double b = 0;
-    for (int bb = 0; bb < gx; ++bb)
-      b += ctx_bits(lastx[ctx_offset + (bb >> ctx_shift)], 1);
-    if (gx < cmax) b += ctx_bits(lastx[ctx_offset + (gx >> ctx_shift)], 0);
-    for (int bb = 0; bb < gy; ++bb)
-      b += ctx_bits(lasty[ctx_offset + (bb >> ctx_shift)], 1);
-    if (gy < cmax) b += ctx_bits(lasty[ctx_offset + (gy >> ctx_shift)], 0);
-    if (gx > 3) b += (gx >> 1) - 1;
-    if (gy > 3) b += (gy >> 1) - 1;
-    return b;
-  };
-
-  double best = block_uncoded;        // cbf = 0
-  int best_last = -1;
+  // uncoded zeros); compare against coding nothing at all. The running
+  // sum goes through every position from the first nonzero level down
+  // (above it every position is an uncoded zero without a sig bin, which
+  // leaves the sum unchanged); the candidates are the nonzero levels
+  // alone, weighed after it. The last position (x, y) costs last_x[x] +
+  // last_y[y], the vertical scan coding them swapped.
+  double base_at[NN];
   double base = total;
-  for (int i = last_scan; i >= 0; --i) {
-    int r = scan[i];
-    if (lev[r]) {
-      double cand = base - cost_sig[i] + lambda * last_bits(r);
-      if (cand < best) { best = cand; best_last = i; }
-      base += cost_zero[i] - cost_coeff[i];
-    } else {
-      base -= cost_sig[i];
-      base += cost_zero[i] - cost_coeff[i];
-    }
+  for (int i = first; i >= 0; --i) {
+    base_at[i] = base;
+    // a zero level also gives up its sig bin (times 1.0 or 0.0: exact)
+    base = (base - cost_sig[i] * (double)(nz_s[i] ^ 1)) +
+           (zero_s[i] - cost_coeff[i]);
   }
-  if (best_last < 0) { std::fill(lev, lev + nn, 0); return 0; }
-  int nz = 0;
-  for (int i = 0; i <= last_scan; ++i) {
-    int r = scan[i];
-    if (i > best_last) lev[r] = 0;
-    if (lev[r]) ++nz;
+  const int ch = luma ? 0 : 1;
+  const int32_t* bits_col =
+      scan_idx == 2 ? rt.last_y[ch][LOG2 - 2] : rt.last_x[ch][LOG2 - 2];
+  const int32_t* bits_row =
+      scan_idx == 2 ? rt.last_x[ch][LOG2 - 2] : rt.last_y[ch][LOG2 - 2];
+  double best = (double)block_sq * dscale;  // cbf = 0, exact as above
+  int best_j = nnz;  // nz_list index of the last position; nnz: none
+  for (int j = 0; j < nnz; ++j) {
+    const int i = nz_list[j], r = scan[i];
+    const double cand = base_at[i] - cost_sig[i] +
+                        lam15 * (bits_col[r & (N - 1)] + bits_row[r >> LOG2]);
+    const int take = less(cand, best);
+    best = std::min(best, cand);
+    best_j += (j - best_j) & -take;
   }
-  return nz;
+  if (best_j == nnz) { std::memset(lev, 0, sizeof(int32_t) * NN); return 0; }
+  for (int j = 0; j < best_j; ++j) lev[scan[nz_list[j]]] = 0;
+  return nnz - best_j;
+}
+
+}  // namespace
+
+int rdoq_quant(const RdoqRates& rt, const int32_t* coef, int32_t* lev,
+               int log2, int c_idx, int scan_idx, int qp, int bd,
+               double lambda, const int32_t* smat) {
+  trace::rdoq();
+  switch (log2) {
+    case 2:
+      return rdoq_tb<2>(rt, coef, lev, c_idx, scan_idx, qp, bd, lambda, smat);
+    case 3:
+      return rdoq_tb<3>(rt, coef, lev, c_idx, scan_idx, qp, bd, lambda, smat);
+    case 4:
+      return rdoq_tb<4>(rt, coef, lev, c_idx, scan_idx, qp, bd, lambda, smat);
+    default:
+      return rdoq_tb<5>(rt, coef, lev, c_idx, scan_idx, qp, bd, lambda, smat);
+  }
 }
 
 double ctx_rate(const ContextModel& c, int bin) {

@@ -522,14 +522,29 @@ class SliceDecoder {
   const ContextSet& contexts() const { return ctx_; }
 };
 
+// The rates exact RDOQ reads, in 1/32768 bit (kEntropyBits), built once
+// from one set of context states: both bins of each sig, gt1 (one), gt2
+// (abs_) and coded-subblock (sig_cg) context, and, per component class
+// ([0] luma, [1] chroma) and TB size ([log2 - 2]), the last position's
+// prefix and suffix bits of each x and each y coordinate.
+struct RdoqRates {
+  int32_t sig[44][2];
+  int32_t one[24][2];
+  int32_t abs_[6][2];
+  int32_t sig_cg[4][2];
+  int32_t last_x[2][4][32];
+  int32_t last_y[2][4][32];
+  void build(const ContextSet& cs);
+};
+
 // Exact rate-distortion-optimized quantization (reference
 // TComTrQuant::xRateDistOptQuant, TComTrQuant.cpp:2129): per-coefficient
 // level choice, coefficient-group zeroing and last-position selection by
-// D + lambda*R with context-exact fractional-bit rates (kEntropyBits)
-// evaluated on the context states in `cs`. coef: forward-transform
-// coefficients (raster); lev: output levels (raster). Returns the number
-// of nonzero levels (0 = code no residual).
-int rdoq_quant(const ContextSet& cs, const int32_t* coef, int32_t* lev,
+// D + lambda*R with context-exact fractional-bit rates read from `rt`.
+// coef: forward-transform coefficients (raster); lev: output levels
+// (raster); log2 2..5. Returns the number of nonzero levels (0 = code no
+// residual).
+int rdoq_quant(const RdoqRates& rt, const int32_t* coef, int32_t* lev,
                int log2, int c_idx, int scan_idx, int qp, int bd,
                double lambda, const int32_t* smat);
 

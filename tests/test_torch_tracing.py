@@ -158,7 +158,8 @@ def test_intra_counters_read_nothing_with_tracing_off(runs):
 
 def _intra_engine_counts(w, h, planes, traced=True):
     """The engine's trace counts (ENGINE_TRACE_COUNTS of them: traced frame
-    calls, row switches, intra modes through full RD, core transforms) over
+    calls, row switches, intra modes through full RD, core transforms,
+    exact RDOQs) over
     one all-intra picture of w x h, coded with tracing on or off."""
     from hevc_tpu_torch.encoder.top import EncoderTop
     from hevc_tpu_torch.io.cfg import parse_cli, validate
@@ -196,16 +197,33 @@ def test_engine_intra_rd_modes_grow_with_the_cus():
     assert 0 < small < big
 
 
-def test_engine_xforms_count_only_while_traced():
+@pytest.fixture(scope="module")
+def intra_128x80_counts():
+    """The engine's trace counts over one 128x80 all-intra picture, coded
+    traced and untraced."""
+    y, u, v = moving_frames(1, 128, 80)[0]
+    return {traced: _intra_engine_counts(128, 80, [y, u, v], traced=traced)
+            for traced in (True, False)}
+
+
+def test_engine_xforms_count_only_while_traced(intra_128x80_counts):
     """A traced 128x80 all-intra picture counts its core transforms: each
     exact-RD mode trial transforms its residual, and so does every coded
     TB. Untraced, no engine count moves."""
-    y, u, v = moving_frames(1, 128, 80)[0]
-    on = _intra_engine_counts(128, 80, [y, u, v], traced=True)
+    on = intra_128x80_counts[True]
     assert on["engine_traced_frames"] == 1
     assert on["engine_xforms"] > on["engine_intra_rd_modes"] > 0
-    off = _intra_engine_counts(128, 80, [y, u, v], traced=False)
+    off = intra_128x80_counts[False]
     assert off == dict.fromkeys(off, 0)
+
+
+def test_engine_rdoqs_count_only_while_traced(intra_128x80_counts):
+    """A traced 128x80 all-intra picture counts its exact RDOQs: each
+    exact-RD mode trial quantises its residual through rdoq_quant. Untraced
+    the count stays 0."""
+    on = intra_128x80_counts[True]
+    assert on["engine_rdoqs"] > on["engine_intra_rd_modes"] > 0
+    assert intra_128x80_counts[False]["engine_rdoqs"] == 0
 
 
 def test_h2d_bytes_are_the_uploads_sizes(runs):
@@ -292,7 +310,7 @@ _ENGINE_AND_LOOP = (
     "engine_host_ms_p90", "lookahead_ms_per_frame",
     "frame_setup_ms_per_frame", "stream_write_ms_per_frame",
     "h2d_mb_per_frame", "engine_row_switches_per_frame",
-    "engine_xforms_per_frame")
+    "engine_xforms_per_frame", "engine_rdoqs_per_frame")
 TRACE_METRICS = {
     "ldp_main.e720_static": _ENGINE_AND_LOOP + (
         "engine_merge_ms_per_frame", "engine_inter_search_ms_per_frame",
